@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serve path once on one CUDA card and check it.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
+``nvidia-smi``; it imports only the port (``mermaid_classifier_tpu_torch``),
+torch and numpy, and exits non-zero at the first failed phase.
+
+Phases, one output line each:
+
+1. build  — compile every kernel of ``mermaid_classifier_tpu_torch/csrc``.
+2. crop   — the crop kernel against its plain version on the card (1536x2048
+   image, 25 and 128 points with edge points, f32 and bf16): bitwise equal.
+3. fused  — the fused-MBConv kernel against its plain version for each of the
+   11 fusable B0 blocks at 224 px, 128 patches: rel <= 1e-5 at f32 (TF32
+   off), rel <= 0.05 at bf16.
+4. trunk  — full B0 224 extractor (feature_dim 4096, backbone_impl="fused"),
+   f32 and bf16, ``verify_device_numerics`` min cosine >= 0.999.
+5. serve  — a 4096->500->300->100->80 sigmoid head artifact, 4 AnnotationRun
+   requests of 25 points and one of 200 (two backbone chunks) on 1536x2048
+   images. Rows sum to 1 within 1e-6, top-N lists are well formed, request 0
+   agrees with the f32 nn.Module path on the CPU within 1e-4, and the
+   kernels' launch counts equal one crop per request and 11 fused blocks per
+   128-patch chunk.
+6. times  — CUDA-event times of each kernel and its plain version, trunk
+   patch-features/s at batch 128 (bf16 and f32; fused kernel blocks and
+   plain "folded" blocks), p50 latency of a 25-point request.
+
+Then the card's name and power limit (nvidia-smi), one JSON line of kernel
+results, and as the last line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+SEED = 0
+IMAGE_HW = (1536, 2048)
+PATCHES = 128
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(line: str) -> None:
+    print(line, flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call of ``fn`` by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
+
+
+def perturbed_b0_variables(config):
+    """Seeded B0 variables with non-trivial BN statistics, so that folding
+    is exercised (the seeded init has identity-like stats)."""
+    import numpy as np
+
+    from mermaid_classifier_tpu_torch.models.efficientnet import (
+        init_backbone_params,
+    )
+
+    variables = init_backbone_params(SEED, config)
+    rng = np.random.default_rng(SEED + 1)
+
+    def perturb(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                perturb(val)
+            elif key == "mean":
+                tree[key] = (rng.standard_normal(val.shape) * 0.1).astype(np.float32)
+            elif key == "var":
+                tree[key] = (rng.random(val.shape) * 0.5 + 0.75).astype(np.float32)
+
+    perturb(variables["batch_stats"])
+    return variables
+
+
+def padded_image(rng, config):
+    import numpy as np
+
+    h, w = IMAGE_HW
+    half = config.patch_size // 2
+    hp = -(-(h + 2 * half) // 256) * 256
+    wp = -(-(w + 2 * half) // 256) * 256
+    image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    out = np.zeros((hp, wp, 3), np.uint8)
+    out[half:half + h, half:half + w] = image
+    return out
+
+
+def points(rng, n: int):
+    """n points in the image, the four corners among them."""
+    import numpy as np
+
+    h, w = IMAGE_HW
+    pts = np.stack([rng.integers(0, h, n), rng.integers(0, w, n)], 1)
+    pts[:4] = [[0, 0], [h - 1, w - 1], [0, w - 1], [h - 1, 0]]
+    return pts.astype(np.int32)
+
+
+def phase_build():
+    from mermaid_classifier_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load()
+    say(f"build: ok in {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+
+
+def phase_crop(config, results):
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.ops.patch_crop import extract_patches
+    from mermaid_classifier_tpu_torch.ops.patch_ops import (
+        channel_scale_bias,
+        extract_patches_plain,
+    )
+
+    rng = np.random.default_rng(SEED)
+    scale, bias = channel_scale_bias(config.mean_rgb, config.std_rgb)
+    image = torch.from_numpy(padded_image(rng, config)).cuda()
+    ps = config.patch_size
+    worst = 0.0
+    for n in (25, PATCHES):
+        starts = points(rng, n)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = extract_patches(image, starts, ps, scale, bias, dtype)
+            want = extract_patches_plain(
+                image, torch.from_numpy(starts).cuda(), ps,
+                torch.from_numpy(scale).cuda(), torch.from_numpy(bias).cuda(),
+                dtype,
+            )
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"crop kernel differs from plain at {n} points {dtype}:"
+                     f" max abs {float((got.float() - want.float()).abs().max())}")
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+    results["patch_crop"] = {"max_abs_err": worst}
+    say(f"crop: kernel == plain bitwise at 25 and {PATCHES} points, f32 and bf16")
+
+
+def phase_fused(config, folded, results):
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
+
+    rng = np.random.default_rng(SEED + 2)
+    worst_abs = 0.0
+    rels = {}
+    for i, blk in enumerate(folded["blocks"]):
+        meta = blk["meta"]
+        if not fm.fusable(meta):
+            continue
+        x = torch.from_numpy(rng.standard_normal(
+            (PATCHES, meta.h, meta.w, meta.in_channels)).astype(np.float32)).cuda()
+        for dtype, bound in ((torch.float32, 1e-5), (torch.bfloat16, 0.05)):
+            xin = x.to(dtype)
+            got = fm.fused_mbconv(xin, blk)
+            with fm.full_f32():
+                want = fm.fused_mbconv_reference(xin, blk)
+            torch.cuda.synchronize()
+            rel = rel_err(got, want)
+            if not torch.isfinite(got.float()).all() or not rel <= bound:
+                fail(f"fused block {i} {meta} {dtype}: rel {rel} > {bound}")
+            rels[(i, dtype)] = rel
+            worst_abs = max(worst_abs, float((got.float() - want.float()).abs().max()))
+    n_blocks = len({i for i, _ in rels})
+    if n_blocks != 11:
+        fail(f"expected 11 fusable B0 blocks, found {n_blocks}")
+    results["fused_mbconv"] = {"max_abs_err": worst_abs}
+    f32 = max(r for (_, d), r in rels.items() if d == torch.float32)
+    bf16 = max(r for (_, d), r in rels.items() if d == torch.bfloat16)
+    say(f"fused: 11 blocks x {PATCHES} patches, max rel f32 {f32:.3e}"
+        f" (<= 1e-5), bf16 {bf16:.3e} (<= 0.05)")
+
+
+def phase_trunk(variables, config):
+    from dataclasses import replace
+
+    from mermaid_classifier_tpu_torch.models.extractor import build_extractor
+
+    cosines = {}
+    for dtype in ("float32", "bfloat16"):
+        ext = build_extractor(
+            variables, replace(config, compute_dtype=dtype), device="cuda",
+            backbone_impl="fused",
+        )
+        cosines[dtype] = ext.verify_device_numerics()
+    say(f"trunk: B0 224 fused, min cosine vs f32 CPU module: f32"
+        f" {cosines['float32']:.6f}, bf16 {cosines['bfloat16']:.6f} (>= 0.999)")
+
+
+def write_head_artifact(out_dir: Path, n_classes: int = 80) -> list[str]:
+    import numpy as np
+
+    from mermaid_classifier_tpu_torch.inference import SCHEMA_VERSION
+    from mermaid_classifier_tpu_torch.inference.export import save_head_npz
+    from mermaid_classifier_tpu_torch.inference.head import HeadParams
+
+    rng = np.random.default_rng(SEED + 3)
+    dims = [4096, 500, 300, 100, n_classes]
+    weights = [
+        (rng.standard_normal((a, b)) * (2.0 / np.sqrt(a))).astype(np.float32)
+        for a, b in zip(dims[:-1], dims[1:])
+    ]
+    biases = [(rng.standard_normal(b) * 0.1).astype(np.float32) for b in dims[1:]]
+    a = (-rng.random(n_classes) * 4.0 - 1.0).astype(np.float32)
+    b = (rng.standard_normal(n_classes) * 0.5).astype(np.float32)
+    classes = [f"ba-{i}::gf-{i % 7}" for i in range(n_classes)]
+    save_head_npz(out_dir / "model.npz", HeadParams(weights, biases, a, b))
+    (out_dir / "model.json").write_text(json.dumps({
+        "schema_version": SCHEMA_VERSION,
+        "task": "mermaid_mlp_classifier",
+        "classes": classes,
+        "input_dim": dims[0],
+        "calibration": "sigmoid",
+        "config": {"patch_size": 224},
+    }))
+    return classes
+
+
+def write_points(path: Path, pts) -> None:
+    lines = ["Row,Column,id"] + [f"{r},{c},{i}" for i, (r, c) in enumerate(pts)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def check_run(run, n: int, classes: list[str], top_n: int) -> None:
+    import numpy as np
+
+    proba = run.proba
+    if proba is None or proba.shape != (n, len(classes)):
+        fail(f"serve: probabilities of shape {None if proba is None else proba.shape}")
+    if not np.isfinite(proba).all():
+        fail("serve: non-finite probabilities")
+    if not np.abs(proba.sum(axis=1) - 1.0).max() <= 1e-6:
+        fail(f"serve: row sums off by {np.abs(proba.sum(axis=1) - 1.0).max()}")
+    if len(run.predictions) != n:
+        fail(f"serve: {len(run.predictions)} predictions for {n} points")
+    for pred in run.predictions:
+        if (len(pred.labels) != top_n or not set(pred.labels) <= set(classes)
+                or pred.scores != sorted(pred.scores, reverse=True)
+                or not all(0.0 <= s <= 1.0 for s in pred.scores)):
+            fail(f"serve: malformed top-{top_n} {pred}")
+
+
+def phase_serve(variables, config, results, tmp: Path):
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.inference import load_predictor
+    from mermaid_classifier_tpu_torch.models.extractor import build_extractor
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+
+    classes = write_head_artifact(tmp)
+    predictor = load_predictor(tmp, device="cuda")
+    extractor = build_extractor(variables, config, device="cuda")
+    rng = np.random.default_rng(SEED + 4)
+    h, w = IMAGE_HW
+    requests = []
+    for i, n in enumerate((25, 25, 25, 25, 200)):
+        image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        csv_path = tmp / f"points_{i}.csv"
+        write_points(csv_path, points(rng, n))
+        requests.append((image, csv_path, n))
+
+    runs = [AnnotationRun(image, csv_path, predictor, extractor=extractor)
+            for image, csv_path, _ in requests]
+    patch_crop.launches = 0
+    fused_mbconv.launches = 0
+    for run in runs:
+        run.run()
+    crop_launches = patch_crop.launches
+    fused_launches = fused_mbconv.launches
+    torch.cuda.synchronize()
+
+    for run, (_, _, n) in zip(runs, requests):
+        check_run(run, n, classes, run.top_n)
+    chunks = sum(-(-n // extractor.backbone_batch) for _, _, n in requests)
+    if crop_launches != len(requests) or fused_launches != 11 * chunks:
+        fail(f"serve: {crop_launches} crop launches (want {len(requests)}),"
+             f" {fused_launches} fused launches (want {11 * chunks})")
+    results["patch_crop"]["launches"] = crop_launches
+    results["fused_mbconv"]["launches"] = fused_launches
+
+    # Request 0 again through the f32 nn.Module path on the CPU.
+    cpu_run = AnnotationRun(
+        requests[0][0], requests[0][1], load_predictor(tmp, device="cpu"),
+        extractor=build_extractor(variables, config, device="cpu",
+                                  backbone_impl="module"),
+    )
+    cpu_run.run()
+    diff = float(np.abs(cpu_run.proba - runs[0].proba).max())
+    if not diff <= 1e-4:
+        fail(f"serve: request 0 differs from the CPU module path by {diff}")
+    say(f"serve: 5 requests ({', '.join(str(n) for *_, n in requests)} points),"
+        f" rows sum to 1, launches crop={crop_launches}"
+        f" fused={fused_launches}, max |dp| vs CPU f32 module {diff:.2e}")
+    return extractor, runs[0]
+
+
+def phase_times(config, folded, results, extractor, run25, smi):
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.models.extractor import build_extractor
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
+    from mermaid_classifier_tpu_torch.ops.patch_crop import extract_patches
+    from mermaid_classifier_tpu_torch.ops.patch_ops import (
+        channel_scale_bias,
+        extract_patches_plain,
+    )
+
+    say(f"times on: {smi}")
+    rng = np.random.default_rng(SEED + 5)
+    ps = config.patch_size
+    scale, bias = channel_scale_bias(config.mean_rgb, config.std_rgb)
+    image = torch.from_numpy(padded_image(rng, config)).cuda()
+    starts = points(rng, PATCHES)
+    starts_dev = torch.from_numpy(starts).cuda()
+    scale_dev, bias_dev = torch.from_numpy(scale).cuda(), torch.from_numpy(bias).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        k_ms = cuda_ms(lambda: extract_patches(image, starts, ps, scale, bias, dtype))
+        p_ms = cuda_ms(lambda: extract_patches_plain(
+            image, starts_dev, ps, scale_dev, bias_dev, dtype))
+        say(f"time crop {PATCHES} patches {str(dtype)[6:]}: kernel {k_ms:.4f} ms,"
+            f" plain {p_ms:.4f} ms")
+        if dtype == extractor.dtype:
+            results["patch_crop"].update(ms=k_ms, plain_ms=p_ms)
+
+    sums = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k_sum = p_sum = 0.0
+        for i, blk in enumerate(folded["blocks"]):
+            meta = blk["meta"]
+            if not fm.fusable(meta):
+                continue
+            x = torch.from_numpy(rng.standard_normal(
+                (PATCHES, meta.h, meta.w, meta.in_channels)).astype(np.float32)
+            ).cuda().to(dtype)
+            k_ms = cuda_ms(lambda: fm.fused_mbconv(x, blk), iters=10)
+            with fm.full_f32():
+                p_ms = cuda_ms(lambda: fm.fused_mbconv_reference(x, blk), iters=10)
+            k_sum += k_ms
+            p_sum += p_ms
+            say(f"time fused block {i} ({meta.h}^2 {meta.in_channels}->"
+                f"{meta.mid_channels}->{meta.out_channels} k{meta.kernel})"
+                f" {str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        sums[dtype] = (k_sum, p_sum)
+        say(f"time fused 11 blocks {str(dtype)[6:]}: kernel {k_sum:.4f} ms,"
+            f" plain {p_sum:.4f} ms")
+    k_sum, p_sum = sums[extractor.dtype]
+    results["fused_mbconv"].update(ms=k_sum, plain_ms=p_sum)
+
+    patches = torch.from_numpy(
+        rng.random((PATCHES, ps, ps, 3)).astype(np.float32)).cuda()
+    for dtype in ("bfloat16", "float32"):
+        for impl in ("fused", "folded"):
+            trunk = build_extractor(
+                extractor.variables, replace(config, compute_dtype=dtype),
+                device="cuda", backbone_impl=impl,
+            )
+            x = patches.to(trunk.dtype)
+            with torch.inference_mode():
+                trunk_ms = cuda_ms(lambda: trunk._forward(x), iters=10)
+            say(f"time trunk {dtype} {impl} batch {PATCHES}: {trunk_ms:.3f} ms,"
+                f" {PATCHES / trunk_ms * 1e3:.1f} patch-features/s")
+
+    lat = []
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run25.run()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = sorted(lat[3:])
+    say(f"time request 25 points f32 fused: p50 {lat[len(lat) // 2]:.3f} ms,"
+        f" min {lat[0]:.3f} ms, max {lat[-1]:.3f} ms over {len(lat)} runs")
+
+    # The same request by stage, synchronizing after each (host clock).
+    image = run25.load_image()
+    rowcols = run25.points.rowcols()
+    stages = {"pad (host)": [], "upload": [], "crop": [], "trunk": [],
+              "head": []}
+
+    def staged():
+        marks = [time.perf_counter()]
+        padded = extractor._prepare_image(image)
+        marks.append(time.perf_counter())
+        dev = torch.from_numpy(padded).cuda()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        starts = extractor._pad_starts(rowcols, extractor.point_bucket)
+        patches = extract_patches(dev, starts, ps, scale, bias,
+                                  extractor.dtype)[: len(rowcols)]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        feats = extractor.features_for_patches_device(patches)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        run25.predictor.predict_proba(feats)
+        marks.append(time.perf_counter())
+        for name, t0, t1 in zip(stages, marks, marks[1:]):
+            stages[name].append((t1 - t0) * 1e3)
+
+    for _ in range(23):
+        staged()
+    say("time request 25 points by stage (p50 ms): " + ", ".join(
+        f"{name} {sorted(v[3:])[len(v[3:]) // 2]:.3f}" for name, v in stages.items()))
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
+    from mermaid_classifier_tpu_torch.models.efficientnet import EfficientNetConfig
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    config = EfficientNetConfig()
+    results = {}
+    phase_build()
+    phase_crop(config, results)
+    variables = perturbed_b0_variables(config)
+    folded = fm.to_device(fm.fold_backbone(variables, config), "cuda")
+    phase_fused(config, folded, results)
+    phase_trunk(variables, config)
+    with tempfile.TemporaryDirectory() as tmp:
+        extractor, run25 = phase_serve(variables, config, results, Path(tmp))
+        phase_times(config, folded, results, extractor, run25, smi)
+
+    sources = {
+        "patch_crop": ("mermaid_classifier_tpu_torch/csrc/patch_crop.cu",
+                       "mermaid_classifier_tpu/experiments/pallas_crop.py:72"),
+        "fused_mbconv": ("mermaid_classifier_tpu_torch/csrc/fused_mbconv.cu",
+                         "mermaid_classifier_tpu/ops/fused_mbconv.py:424"),
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         **{key: results[name][key]
+            for key in ("launches", "max_abs_err", "ms", "plain_ms")}}
+        for name, (src, rep) in sources.items()
+    ]
+    say(smi)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

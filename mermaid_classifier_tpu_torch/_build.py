@@ -1,0 +1,125 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The library
+is named by the sha256 of the sources and the flags
+(``_build/libmct_kernels-<digest>.so``), so an edit rebuilds and an unchanged
+tree reuses the cached file. The compiler writes a private temporary name
+that is renamed into place atomically, so concurrent builders never load a
+half-written file. A failed build raises: there is no fallback.
+
+The build happens on the first call of ``load()``, which only the kernel
+wrappers make when they are handed a CUDA tensor — importing this module
+compiles nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).with_name("csrc")
+_BUILD_DIR = Path(__file__).with_name("_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of the exported launchers (csrc/*.cu); each returns the
+# cudaError_t of its launches as an int.
+_SIGNATURES = {
+    "mct_patch_crop": [
+        _P, _I, _P, _I, _I,              # image, wp, starts, n_points, ps
+        _F, _F, _F, _F, _F, _F,          # scale[3], bias[3]
+        _P, _I, _P,                      # out, out_bf16, stream
+    ],
+    "mct_fused_mbconv": [
+        _P, _P, _I,                      # x, out, act_bf16
+        _I, _I, _I, _I, _I, _I, _I, _I,  # n, h, w, cin, cmid, cout, cse, k
+        _I,                              # residual
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # weights and biases
+        _P, _P, _P,                      # d scratch, partial sums, SE scale
+        _I, _P,                          # rows per tile, stream
+    ],
+}
+
+_lib: ctypes.CDLL | None = None
+last_build_log = ""
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels"
+        " cannot be built"
+    )
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"libmct_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the library for the current sources is
+    missing; returns its path. Raises RuntimeError when nvcc fails."""
+    global last_build_log
+    lib = library_path()
+    if lib.is_file():
+        return lib
+    _BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.part")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{last_build_log[-4000:]}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.mct_error_string.argtypes = [_I]
+        lib.mct_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err != 0:
+        name = load().mct_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({name})")
