@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path once on one CUDA card and check it.
+"""Drive the PyTorch port's serve path and its full-trunk A/B harness on one
+CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
@@ -14,17 +15,30 @@ Phases, one output line each:
 3. fused  — the fused-MBConv kernel against its plain version for each of the
    11 fusable B0 blocks at 224 px, 128 patches: rel <= 1e-5 at f32 (TF32
    off), rel <= 0.05 at bf16.
-4. trunk  — full B0 224 extractor (feature_dim 4096, backbone_impl="fused"),
+4. depthwise — the k x k depthwise kernel against its plain version at 128
+   patches, f32 and bf16, on the 8 distinct geometries of B0 224's 12
+   stride-1 depthwise convs and one odd map (15^2 x 72, k5): bitwise equal.
+5. trunk  — full B0 224 extractor (feature_dim 4096, backbone_impl="fused"),
    f32 and bf16, ``verify_device_numerics`` min cosine >= 0.999.
-5. serve  — a 4096->500->300->100->80 sigmoid head artifact, 4 AnnotationRun
+6. serve  — a 4096->500->300->100->80 sigmoid head artifact, 4 AnnotationRun
    requests of 25 points and one of 200 (two backbone chunks) on 1536x2048
    images. Rows sum to 1 within 1e-6, top-N lists are well formed, request 0
    agrees with the f32 nn.Module path on the CPU within 1e-4, and the
    kernels' launch counts equal one crop per request and 11 fused blocks per
    128-patch chunk.
-6. times  — CUDA-event times of each kernel and its plain version, trunk
-   patch-features/s at batch 128 (bf16 and f32; fused kernel blocks and
-   plain "folded" blocks), p50 latency of a 25-point request.
+7. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
+   224, 128-patch chunks, on every schedule of ``AB_SCHEDULES``: in bf16 and
+   f32 each schedule's ``gate_cosine`` against ``folded`` is >= 0.999;
+   ``time_trunk`` patch-features/s of every schedule in bf16 and of
+   ``AB_F32_TIMED`` in f32, with the depthwise and fused launches per chunk
+   of each timed run equal to ``AB_PER_CHUNK``; then the harness's CLI
+   ``main`` once at 256 points with its numerics gate, which must print no
+   ``[FAIL]``.
+8. times  — CUDA-event times of each kernel and its plain version (and, per
+   depthwise geometry, cuDNN's depthwise conv as the ``folded`` schedule
+   runs it), trunk patch-features/s at batch 128 (bf16 and f32; fused
+   kernel blocks and plain "folded" blocks), p50 latency of a 25-point
+   request.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of kernel
 results, and as the last line ``{"ok": true, "device": {...}}``.
@@ -42,6 +56,21 @@ from pathlib import Path
 SEED = 0
 IMAGE_HW = (1536, 2048)
 PATCHES = 128
+DW_ODD = (15, 72, 5)  # (map, channels, k): odd map, channels not a multiple of 32
+
+AB_SCHEDULES = (
+    "flax", "folded", "folded+dwp5", "folded+dwp3+dwp5", "folded+taps5",
+    "folded+im2col", "folded+w8", "folded+fused", "folded+fused+dwp3",
+    "folded+fused+w8", "folded+split8",
+)
+AB_F32_TIMED = ("folded", "folded+dwp5", "folded+dwp3+dwp5")
+# (depthwise, fused) kernel launches per 128-patch B0 224 chunk; (0, 0) else.
+AB_PER_CHUNK = {
+    "folded+dwp5": (7, 0), "folded+dwp3+dwp5": (12, 0),
+    "folded+fused": (0, 11), "folded+fused+dwp3": (1, 11),
+    "folded+fused+w8": (0, 11),
+}
+AB_POINTS, AB_WARMUP, AB_ITERS, AB_REPEATS = 512, 2, 3, 3
 
 
 def fail(msg: str) -> None:
@@ -200,6 +229,131 @@ def phase_fused(config, folded, results):
         f" (<= 1e-5), bf16 {bf16:.3e} (<= 0.05)")
 
 
+def depthwise_geometries(config):
+    """(map, channels, k, blocks) of every distinct stride-1 depthwise conv
+    of the trunk, then the odd map (blocks 0: no block of B0 224 has it)."""
+    from collections import Counter
+
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
+
+    counts = Counter((m.h, m.mid_channels, m.kernel)
+                     for m in fm.block_metas(config) if m.stride == 1)
+    return [(*g, n) for g, n in sorted(counts.items())] + [(*DW_ODD, 0)]
+
+
+def depthwise_inputs(rng, h, c, k):
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(rng.standard_normal((PATCHES, h, h, c)).astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.standard_normal((k, k, c)) * 0.2).astype(np.float32)).cuda()
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda()
+    return x, w, b
+
+
+def phase_depthwise(config, results):
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.ops import depthwise as dw
+
+    geoms = depthwise_geometries(config)
+    if len(geoms) != 9 or sum(g[3] for g in geoms) != 12:
+        fail(f"expected 8 distinct stride-1 depthwise geometries in 12 B0"
+             f" blocks, found {geoms[:-1]}")
+    rng = np.random.default_rng(SEED + 6)
+    for h, c, k, _ in geoms:
+        x, w, b = depthwise_inputs(rng, h, c, k)
+        for dtype in (torch.float32, torch.bfloat16):
+            xin = x.to(dtype)
+            got = dw.depthwise_conv(xin, w, b, kernel=k)
+            want = dw.depthwise_conv_reference(xin, w, b, kernel=k)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"depthwise kernel differs from plain at {h}^2 x {c} k{k}"
+                     f" {dtype}: max abs"
+                     f" {float((got.float() - want.float()).abs().max())}")
+    results["depthwise_conv"] = {"max_abs_err": 0.0}
+    say(f"depthwise: kernel == plain bitwise at {PATCHES} patches, f32 and"
+        f" bf16, on " + ", ".join(f"{h}^2x{c} k{k}" for h, c, k, _ in geoms))
+
+
+def phase_trunk_ab(variables, config, results):
+    import contextlib
+    import io
+    from dataclasses import replace
+
+    from mermaid_classifier_tpu_torch.experiments import trunk_ab as ta
+    from mermaid_classifier_tpu_torch.models.efficientnet import (
+        EfficientNetBackbone,
+    )
+    from mermaid_classifier_tpu_torch.ops import depthwise as dw
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
+    from mermaid_classifier_tpu_torch.ops import patch_crop
+
+    chunks = (AB_WARMUP + AB_ITERS * AB_REPEATS) * (AB_POINTS // PATCHES)
+    dw_total = 0
+    for dtype in ("bfloat16", "float32"):
+        cfg = replace(config, compute_dtype=dtype)
+        built = {}
+        for schedule in AB_SCHEDULES:
+            base, split = ta.parse_split(schedule)
+            fwd, weights = ta.build_forward(base, EfficientNetBackbone(cfg),
+                                            variables, cfg, device="cuda")
+            if split is not None:
+                def fwd(w, p, split=split):  # the seam over two half chunks
+                    half = p.shape[0] // 2
+                    return ta.split_forward(w, cfg, [p[:half], p[half:]], split)
+            built[schedule] = (fwd, weights, split)
+
+        ref = built["folded"][:2]
+        worst = (2.0, "")
+        for schedule, (fwd, weights, _) in built.items():
+            if schedule == "folded":
+                continue
+            cos = ta.gate_cosine(*ref, fwd, weights, cfg, device="cuda",
+                                 chunk=PATCHES)
+            if not cos >= 0.999:
+                fail(f"trunk_ab {dtype} {schedule}: min cosine vs folded"
+                     f" {cos:.6f} < 0.999")
+            worst = min(worst, (cos, schedule))
+        say(f"trunk_ab {dtype}: {len(built) - 1} schedules vs folded, min"
+            f" cosine {worst[0]:.6f} ({worst[1]}) >= 0.999")
+
+        for schedule, (fwd, weights, split) in built.items():
+            if dtype == "float32" and schedule not in AB_F32_TIMED:
+                continue
+            dw.launches = fm.launches = patch_crop.launches = 0
+            rate, runs = ta.time_trunk(
+                fwd, weights, cfg, device="cuda", points=AB_POINTS, chunk=PATCHES,
+                warmup=AB_WARMUP, iters=AB_ITERS, repeats=AB_REPEATS,
+                split=split,
+            )
+            got = (dw.launches, fm.launches, patch_crop.launches)
+            want = (*(n * chunks for n in AB_PER_CHUNK.get(schedule, (0, 0))), 0)
+            if got != want:
+                fail(f"trunk_ab {dtype} {schedule}: launches (depthwise,"
+                     f" fused, crop) {got} over {chunks} chunks, want {want}")
+            dw_total += got[0]
+            say(f"time trunk_ab {dtype} {schedule}: {rate:.1f} patch-features/s"
+                f" ({1e6 / rate:.2f} us/patch), runs"
+                f" {[round(r, 1) for r in runs]}, launches per chunk"
+                f" depthwise {got[0] // chunks} fused {got[1] // chunks}")
+    results["depthwise_conv"]["launches"] = dw_total
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ta.main(["--device", "cuda", "--schedules", "folded",
+                      "folded+dwp3+dwp5", "folded+fused+w8", "folded+split8",
+                      "--points", "256", "--chunk", str(PATCHES), "--iters",
+                      "1", "--repeats", "1", "--numerics-gate"])
+    text = out.getvalue()
+    for line in text.splitlines():
+        say(f"trunk_ab cli | {line}")
+    if rc != 0 or "[FAIL]" in text or text.count("[PASS]") != 2:
+        fail(f"trunk_ab cli: rc {rc}, expected two [PASS] and no [FAIL]")
+
+
 def phase_trunk(variables, config):
     from dataclasses import replace
 
@@ -332,6 +486,7 @@ def phase_times(config, folded, results, extractor, run25, smi):
     import torch
 
     from mermaid_classifier_tpu_torch.models.extractor import build_extractor
+    from mermaid_classifier_tpu_torch.ops import depthwise as dw
     from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
     from mermaid_classifier_tpu_torch.ops.patch_crop import extract_patches
     from mermaid_classifier_tpu_torch.ops.patch_ops import (
@@ -379,6 +534,33 @@ def phase_times(config, folded, results, extractor, run25, smi):
             f" plain {p_sum:.4f} ms")
     k_sum, p_sum = sums[extractor.dtype]
     results["fused_mbconv"].update(ms=k_sum, plain_ms=p_sum)
+
+    # Depthwise per geometry: the kernel, its plain version, and cuDNN's
+    # grouped conv plus bias as the "folded" schedule runs it. The sums
+    # weight each geometry by its count among B0 224's 12 stride-1 blocks.
+    for dtype in (torch.float32, torch.bfloat16):
+        sums = [0.0, 0.0, 0.0]
+        for h, c, k, blocks in depthwise_geometries(config):
+            x, w, b = depthwise_inputs(rng, h, c, k)
+            x = x.to(dtype)
+            w_oihw = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+            pads = ((k - 1) // 2,) * 2
+            with fm.full_f32():
+                times = (
+                    cuda_ms(lambda: dw.depthwise_conv(x, w, b, kernel=k)),
+                    cuda_ms(lambda: dw.depthwise_conv_reference(x, w, b, kernel=k),
+                            iters=5),
+                    cuda_ms(lambda: fm._conv_nhwc(x, w_oihw, 1, (pads, pads), c,
+                                                  dtype) + b.to(dtype)),
+                )
+            sums = [s + blocks * t for s, t in zip(sums, times)]
+            say(f"time depthwise {h}^2x{c} k{k} ({blocks} B0 blocks)"
+                f" {str(dtype)[6:]}: kernel {times[0]:.4f} ms, plain"
+                f" {times[1]:.4f} ms, cuDNN {times[2]:.4f} ms")
+        say(f"time depthwise 12 B0 blocks {str(dtype)[6:]}: kernel"
+            f" {sums[0]:.4f} ms, plain {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms")
+        if dtype == extractor.dtype:
+            results["depthwise_conv"].update(ms=sums[0], plain_ms=sums[1])
 
     patches = torch.from_numpy(
         rng.random((PATCHES, ps, ps, 3)).astype(np.float32)).cuda()
@@ -455,9 +637,11 @@ def main() -> None:
     variables = perturbed_b0_variables(config)
     folded = fm.to_device(fm.fold_backbone(variables, config), "cuda")
     phase_fused(config, folded, results)
+    phase_depthwise(config, results)
     phase_trunk(variables, config)
     with tempfile.TemporaryDirectory() as tmp:
         extractor, run25 = phase_serve(variables, config, results, Path(tmp))
+        phase_trunk_ab(variables, config, results)
         phase_times(config, folded, results, extractor, run25, smi)
 
     sources = {
@@ -465,6 +649,8 @@ def main() -> None:
                        "mermaid_classifier_tpu/experiments/pallas_crop.py:72"),
         "fused_mbconv": ("mermaid_classifier_tpu_torch/csrc/fused_mbconv.cu",
                          "mermaid_classifier_tpu/ops/fused_mbconv.py:424"),
+        "depthwise_conv": ("mermaid_classifier_tpu_torch/csrc/depthwise.cu",
+                           "mermaid_classifier_tpu/ops/depthwise.py:65"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
-is named by the sha256 of the sources and the flags
-(``_build/libmct_kernels-<digest>.so``), so an edit rebuilds and an unchanged
-tree reuses the cached file. The compiler writes a private temporary name
-that is renamed into place atomically, so concurrent builders never load a
-half-written file. A failed build raises: there is no fallback.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+in parallel, and linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The library is named by the sha256 of the sources
+and the flags (``_build/libmct_kernels-<digest>.so``), so an edit rebuilds
+and an unchanged tree reuses the cached file. Objects and the linked library
+go to a private work directory, and the library is renamed into place
+atomically, so concurrent builders never load a half-written file. A failed
+build raises: there is no fallback.
 
 The build happens on the first call of ``load()``, which only the kernel
 wrappers make when they are handed a CUDA tensor — importing this module
@@ -49,6 +50,12 @@ _SIGNATURES = {
         _P, _P, _P,                      # d scratch, partial sums, SE scale
         _I, _P,                          # rows per tile, stream
     ],
+    "mct_depthwise": [
+        _P, _P, _I,                      # x, out, act_bf16
+        _I, _I, _I, _I, _I,              # n, h, w, c, k
+        _P, _P,                          # taps (k, k, c), bias (c,)
+        _I, _P,                          # rows per tile, stream
+    ],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -81,25 +88,47 @@ def library_path() -> Path:
     return _BUILD_DIR / f"libmct_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once (one nvcc each); log them all, raise if any
+    failed."""
+    global last_build_log
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    last_build_log += "".join(logs)
+    failed = [(cmd, proc.returncode, log)
+              for cmd, proc, log in zip(cmds, procs, logs) if proc.returncode]
+    if failed:
+        cmd, rc, log = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {cmd[-1]}:\n{log[-4000:]}")
+
+
 def build() -> Path:
     """Compile the kernels if the library for the current sources is
-    missing; returns its path. Raises RuntimeError when nvcc fails."""
+    missing; returns its path. Every ``.cu`` file is compiled by its own
+    nvcc, all started together, and the objects are linked into one library.
+    Raises RuntimeError when nvcc fails."""
     global last_build_log
     lib = library_path()
     if lib.is_file():
         return lib
-    _BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f".{lib.name}.{os.getpid()}.part")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{last_build_log[-4000:]}"
-        )
-    os.replace(tmp, lib)
+    last_build_log = ""
+    work = _BUILD_DIR / f".{lib.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        units = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [work / f"{src.stem}.o" for src in units]
+        _run([[nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(units, objs)])
+        tmp = work / lib.name
+        _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

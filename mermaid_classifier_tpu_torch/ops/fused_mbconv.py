@@ -4,13 +4,21 @@ Port of ``mermaid_classifier_tpu/ops/fused_mbconv.py``:
 
 - ``fold_backbone`` folds every BatchNorm into its conv host-side (numpy, the
   same dict as the JAX function): w' = w * gamma/sqrt(var+eps),
-  b' = beta - mean * gamma/sqrt(var+eps). ``to_device`` turns that bundle
-  into tensors on one device, once.
+  b' = beta - mean * gamma/sqrt(var+eps). ``quantize_folded`` turns every
+  ``(w, b)`` entry into the int8 triple ``(w_q, scale, b)`` (the same numpy
+  code as the JAX function). ``to_device`` turns either bundle into tensors
+  on one device, once (int8 weights stay int8); ``_wb`` unpacks an entry,
+  dequantizing a triple.
 - ``apply_folded`` (and its ``_prefix`` / ``_suffix`` halves) is the folded
   forward over NHWC activations in the config's compute dtype. Stem,
   stride-2 blocks and head are plain PyTorch (cuDNN/cuBLAS on the card, run
-  with TF32 off). With ``fused=True`` every ``fusable`` block goes through
-  ``fused_mbconv`` instead of ``_block_plain``.
+  with TF32 off). The schedule options route blocks as the JAX function
+  does: ``fused=True`` sends every ``fusable`` block through
+  ``fused_mbconv``; in the other blocks ``dw_pallas_kernels`` sends the
+  stride-1 depthwise convs of those sizes to the depthwise kernel
+  (``ops/depthwise.py``), ``dw_taps_kernels`` sends convs of those sizes to
+  the plain tap sum ``_dw_taps``, and the rest go to cuDNN;
+  ``stem_im2col`` runs the stem as ``_stem_im2col``.
 - ``fused_mbconv`` runs one stride-1 block: the kernel in
   ``csrc/fused_mbconv.cu`` for a CUDA tensor (its note says what bounds it
   and how it is split at the squeeze-excite mean), the plain version
@@ -38,6 +46,7 @@ from mermaid_classifier_tpu_torch.models.efficientnet import (
     conv_padding,
     pad_nchw,
 )
+from mermaid_classifier_tpu_torch.ops.depthwise import depthwise_conv
 
 launches = 0
 
@@ -159,14 +168,65 @@ def fold_backbone(variables: Any, config: EfficientNetConfig) -> dict:
     return folded
 
 
+def _quantize_wb(entry):
+    """(w, b) -> (w_int8, scale_f32, b): symmetric per-output-channel
+    int8 over the trailing (output) axis; bias stays float32."""
+    w, b = entry
+    w = np.asarray(w, np.float32)
+    absmax = np.max(np.abs(w), axis=tuple(range(w.ndim - 1)), keepdims=True)
+    scale = (absmax / 127.0).astype(np.float32)
+    scale = np.where(scale == 0.0, 1.0, scale)
+    w_q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return w_q, scale, np.asarray(b, np.float32)
+
+
+def quantize_folded(folded: dict) -> dict:
+    """int8-weight variant of a numpy folded bundle: every conv / SE /
+    projection weight stored int8 with per-output-channel scales and
+    dequantized at use. A reduced-precision path, held to the 0.999-cosine
+    gate like bf16."""
+    out: dict[str, Any] = {
+        "stem": _quantize_wb(folded["stem"]),
+        "head": _quantize_wb(folded["head"]),
+        "proj": (
+            _quantize_wb(folded["proj"]) if folded["proj"] is not None
+            else None
+        ),
+    }
+    blocks = []
+    for blk in folded["blocks"]:
+        q: dict[str, Any] = {"meta": blk["meta"]}
+        for name in ("expand", "depthwise", "se_reduce", "se_expand",
+                     "project"):
+            if name in blk:
+                q[name] = _quantize_wb(blk[name])
+        blocks.append(q)
+    out["blocks"] = blocks
+    return out
+
+
+def _wb(entry, dtype):
+    """Unpack a folded entry on the device to (w in ``dtype``, b float32);
+    an int8 triple is dequantized as w_q * per-channel scale in f32, then
+    cast once to ``dtype``."""
+    if len(entry) == 3:
+        w_q, scale, b = entry
+        return (w_q.float() * scale).to(dtype), b
+    w, b = entry
+    return w.to(dtype), b
+
+
 def to_device(folded: dict, device) -> dict:
-    """The numpy folded bundle as contiguous float32 tensors on ``device``
-    (same nesting; metas kept)."""
+    """A numpy folded bundle (``fold_backbone`` or ``quantize_folded``) as
+    contiguous tensors on ``device``: int8 weights stay int8, everything
+    else is float32 (same nesting; metas kept)."""
 
     def wb(entry):
         return tuple(
-            torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
-                            device=device)
+            torch.as_tensor(
+                np.ascontiguousarray(a), device=device,
+                dtype=torch.int8 if a.dtype == np.int8 else torch.float32,
+            )
             for a in entry
         )
 
@@ -187,6 +247,18 @@ def to_device(folded: dict, device) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _fused_weights(blk: dict) -> list[torch.Tensor]:
+    """The fused kernel's ten weight and bias tensors in its argument
+    order, float32 (int8 entries dequantized): expand (Cin, Cmid), taps
+    (k, k, Cmid), SE reduce / expand, project (Cmid, Cout), each followed by
+    its bias."""
+    out = []
+    for key in ("expand", "depthwise", "se_reduce", "se_expand", "project"):
+        w, b = _wb(blk[key], torch.float32)
+        out += [w[0, 0] if key in ("expand", "project") else w, b]
+    return out
+
+
 def fused_mbconv_reference(x: torch.Tensor, blk: dict) -> torch.Tensor:
     """Plain PyTorch version of the fused block (stride 1, with an
     expansion), with the kernel's rounding sites: expand + SiLU in f32 then
@@ -199,23 +271,19 @@ def fused_mbconv_reference(x: torch.Tensor, blk: dict) -> torch.Tensor:
     k = meta.kernel
     p = (k - 1) // 2
     xf = x.float()
-    wexp, bexp = blk["expand"]
-    z = F.silu(torch.matmul(xf, wexp[0, 0]) + bexp).to(act).float()
+    wexp, bexp, wdw, bdw, w1, b1, w2, b2, wproj, bproj = _fused_weights(blk)
+    z = F.silu(torch.matmul(xf, wexp) + bexp).to(act).float()
     zp = F.pad(z, (0, 0, p, p, p, p))  # zero pad H and W of NHWC
-    wdw, bdw = blk["depthwise"]
     acc = torch.zeros_like(z) + bdw
     for dy in range(k):
         for dx in range(k):
             acc = acc + zp[:, dy:dy + h, dx:dx + w, :] * wdw[dy, dx]
     d = F.silu(acc)
     s = d.mean(dim=(1, 2))
-    w1, b1 = blk["se_reduce"]
-    w2, b2 = blk["se_expand"]
     r = F.silu(torch.matmul(s, w1) + b1)
     e = torch.sigmoid(torch.matmul(r, w2) + b2)
     m = (d * e[:, None, None, :]).to(act).float()
-    wproj, bproj = blk["project"]
-    y = torch.matmul(m, wproj[0, 0]) + bproj
+    y = torch.matmul(m, wproj) + bproj
     if meta.residual:
         y = y + xf
     return y.to(act)
@@ -241,7 +309,8 @@ def rows_per_tile(meta: BlockMeta) -> int:
 
 def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
     """Run one stride-1 MBConv block (folded weights as tensors on x's
-    device). x: (P, H, W, Cin) float32 or bfloat16; returns (P, H, W, Cout)
+    device; int8 triples are dequantized to contiguous f32 before the
+    launch). x: (P, H, W, Cin) float32 or bfloat16; returns (P, H, W, Cout)
     in x.dtype. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel or raises."""
     global launches
@@ -263,11 +332,7 @@ def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
         raise ValueError(f"fused_mbconv runs on cpu or cuda, not {x.device}")
 
     cmid, cout, k = meta.mid_channels, meta.out_channels, meta.kernel
-    tensors = [
-        blk["expand"][0][0, 0], blk["expand"][1], *blk["depthwise"],
-        *blk["se_reduce"], *blk["se_expand"], blk["project"][0][0, 0],
-        blk["project"][1],
-    ]
+    tensors = _fused_weights(blk)
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
@@ -330,79 +395,161 @@ def _conv_nhwc(x, w_oihw, stride, pads, groups, dtype):
     return y.permute(0, 2, 3, 1)
 
 
-def _block_plain(x, blk, dtype, padding_mode: str = "symmetric"):
-    """One MBConv block with folded weights, plain PyTorch ops, activations
-    materialized in ``dtype`` (the JAX ``_block_xla``)."""
+def _dw_taps(z, w_dw, b_dw, kernel, stride, acc_dtype=torch.float32,
+             pads=None):
+    """Depthwise conv as an explicit tap sum: k^2 (optionally strided)
+    slices of the zero-padded input, each scaled by its per-channel tap
+    weight, added to an ``acc_dtype`` accumulator that starts at the bias
+    (the JAX ``_dw_taps``, stride 2 included). Returns the accumulator in
+    ``acc_dtype``."""
+    n, h, w, c = z.shape
+    if pads is None:
+        p = (kernel - 1) // 2
+        pads = ((p, p), (p, p))
+    s = stride
+    (top, bottom), (left, right) = pads
+    zp = F.pad(z, (0, 0, left, right, top, bottom))
+    h_out = (h - 1) // s + 1
+    w_out = (w - 1) // s + 1
+    acc = torch.zeros((n, h_out, w_out, c), dtype=acc_dtype,
+                      device=z.device) + b_dw.to(acc_dtype)
+    for dy in range(kernel):
+        for dx in range(kernel):
+            tap = zp[:, dy:dy + (h_out - 1) * s + 1:s,
+                     dx:dx + (w_out - 1) * s + 1:s, :]
+            acc = acc + tap.to(acc_dtype) * w_dw[dy, dx].to(acc_dtype)
+    return acc
+
+
+def _stem_im2col(x, w, b, dtype):
+    """The stem (3->C, k3, s2, symmetric pad 1) as explicit im2col: 9
+    strided slices concatenated into 27 channels, then one 1x1 matmul,
+    bias and SiLU (the JAX ``_stem_im2col``)."""
+    n, h = x.shape[:2]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    h_out = h // 2
+    cols = [
+        xp[:, dy:dy + 2 * h_out - 1:2, dx:dx + 2 * h_out - 1:2, :]
+        for dy in range(3)
+        for dx in range(3)
+    ]
+    z = torch.cat(cols, dim=-1)  # (N, H/2, W/2, 27)
+    wmat = w.reshape(27, -1)  # (ky, kx, cin) row order == the taps'
+    return F.silu(_conv1x1(z, wmat, b, dtype)).to(dtype)
+
+
+def _block_plain(x, blk, dtype, padding_mode: str = "symmetric", *,
+                 dw_taps_kernels: tuple = (), dw_pallas_kernels: tuple = ()):
+    """One MBConv block with folded weights, plain PyTorch ops around the
+    depthwise conv, activations materialized in ``dtype`` (the JAX
+    ``_block_xla``).
+
+    The depthwise conv goes, in this order of precedence: to the depthwise
+    kernel (``ops/depthwise.py``) when ``meta.kernel`` is in
+    ``dw_pallas_kernels`` and the block has stride 1 (it returns ``dtype``,
+    bias added in f32 inside); to the tap sum ``_dw_taps`` when the kernel
+    size is in ``dw_taps_kernels`` (an f32 accumulator, so SiLU runs in f32
+    before the cast); else to cuDNN, with the bias added in ``dtype`` after
+    the conv.
+    """
     meta: BlockMeta = blk["meta"]
     inp = x
     if meta.has_expand:
-        w, b = blk["expand"]
+        w, b = _wb(blk["expand"], torch.float32)
         z = F.silu(_conv1x1(x, w[0, 0], b, dtype)).to(dtype)
     else:
         z = x
-    w_dw, b_dw = blk["depthwise"]
+    w_dw, b_dw = _wb(blk["depthwise"], torch.float32)
     k = meta.kernel
     pads = conv_padding(k, meta.stride, z.shape[1], z.shape[2], padding_mode)
-    z = _conv_nhwc(
-        z, w_dw.permute(2, 0, 1).unsqueeze(1), meta.stride, pads,
-        meta.mid_channels, dtype,
-    ) + b_dw.to(dtype)
+    if k in dw_pallas_kernels and meta.stride == 1:
+        # Stride-1 odd-k SAME pads are symmetric in both padding modes.
+        z = depthwise_conv(z, w_dw, b_dw, kernel=k)
+    elif k in dw_taps_kernels:
+        z = _dw_taps(z, w_dw, b_dw, k, meta.stride, pads=pads)
+    else:
+        z = _conv_nhwc(
+            z, w_dw.permute(2, 0, 1).unsqueeze(1), meta.stride, pads,
+            meta.mid_channels, dtype,
+        ) + b_dw.to(dtype)
     z = F.silu(z).to(dtype)
     s = z.float().mean(dim=(1, 2))
-    w1, b1 = blk["se_reduce"]
-    w2, b2 = blk["se_expand"]
+    w1, b1 = _wb(blk["se_reduce"], torch.float32)
+    w2, b2 = _wb(blk["se_expand"], torch.float32)
     r = F.silu(torch.matmul(s, w1) + b1)
     e = torch.sigmoid(torch.matmul(r, w2) + b2)
     z = (z * e[:, None, None, :].to(dtype)).to(dtype)
-    w, b = blk["project"]
+    w, b = _wb(blk["project"], torch.float32)
     y = _conv1x1(z, w[0, 0], b, dtype).to(dtype)
     if meta.residual:
         y = y + inp
     return y
 
 
-def _run_block(x, blk, dtype, *, fused: bool, padding_mode: str):
+def _run_block(x, blk, dtype, *, fused: bool, padding_mode: str,
+               dw_taps_kernels: tuple = (), dw_pallas_kernels: tuple = ()):
+    """One block under the schedule options (shared by the full forward and
+    the prefix/suffix seam)."""
     if fused and fusable(blk["meta"]):
         # Stride-1 odd-k SAME padding is symmetric in both padding modes,
         # so the kernel's (p, p) taps hold for either config.padding.
         return fused_mbconv(x, blk)
-    return _block_plain(x, blk, dtype, padding_mode)
+    return _block_plain(x, blk, dtype, padding_mode,
+                        dw_taps_kernels=dw_taps_kernels,
+                        dw_pallas_kernels=dw_pallas_kernels)
 
 
-def apply_folded_prefix(folded, config, x, n_blocks, *, fused=False):
-    """Stem + the first ``n_blocks`` MBConv blocks of the folded trunk."""
+def apply_folded_prefix(folded, config, x, n_blocks, *, fused=False,
+                        dw_taps_kernels=(), dw_pallas_kernels=(),
+                        stem_im2col=False):
+    """Stem + the first ``n_blocks`` MBConv blocks of the folded trunk.
+    ``stem_im2col`` takes effect for an even input size and symmetric
+    padding (its slices bake in a (1, 1) pad), as in the JAX function."""
     dtype = compute_dtype(config)
+    mode = config.padding
     with full_f32():
         x = x.to(dtype)
-        w, b = folded["stem"]
-        pads = conv_padding(3, 2, x.shape[1], x.shape[2], config.padding)
-        x = _conv_nhwc(x, w.permute(3, 2, 0, 1), 2, pads, 1, dtype)
-        x = F.silu(x + b.to(dtype)).to(dtype)
+        w, b = _wb(folded["stem"], torch.float32)
+        if (stem_im2col and config.stages and x.shape[1] % 2 == 0
+                and mode == "symmetric"):
+            x = _stem_im2col(x, w, b, dtype)
+        else:
+            pads = conv_padding(3, 2, x.shape[1], x.shape[2], mode)
+            x = _conv_nhwc(x, w.permute(3, 2, 0, 1), 2, pads, 1, dtype)
+            x = F.silu(x + b.to(dtype)).to(dtype)
         for blk in folded["blocks"][:n_blocks]:
-            x = _run_block(x, blk, dtype, fused=fused,
-                           padding_mode=config.padding)
+            x = _run_block(x, blk, dtype, fused=fused, padding_mode=mode,
+                           dw_taps_kernels=dw_taps_kernels,
+                           dw_pallas_kernels=dw_pallas_kernels)
     return x
 
 
-def apply_folded_suffix(folded, config, x, n_blocks, *, fused=False):
+def apply_folded_suffix(folded, config, x, n_blocks, *, fused=False,
+                        dw_taps_kernels=(), dw_pallas_kernels=()):
     """MBConv blocks ``n_blocks:`` + head + pool + projection -> (N, D) f32."""
     dtype = compute_dtype(config)
     with full_f32():
         x = x.to(dtype)
         for blk in folded["blocks"][n_blocks:]:
             x = _run_block(x, blk, dtype, fused=fused,
-                           padding_mode=config.padding)
-        w, b = folded["head"]
+                           padding_mode=config.padding,
+                           dw_taps_kernels=dw_taps_kernels,
+                           dw_pallas_kernels=dw_pallas_kernels)
+        w, b = _wb(folded["head"], torch.float32)
         x = F.silu(_conv1x1(x, w[0, 0], b, dtype)).to(dtype)
         x = x.float().mean(dim=(1, 2))
         if folded["proj"] is not None:
-            w, b = folded["proj"]
+            w, b = _wb(folded["proj"], torch.float32)
             x = torch.matmul(x, w) + b
     return x
 
 
-def apply_folded(folded, config, x, *, fused=False):
-    """Full folded forward: (N, ps, ps, 3) -> (N, feature_dim) float32.
-    ``fused=True`` sends every fusable block through ``fused_mbconv``."""
-    x = apply_folded_prefix(folded, config, x, 0, fused=fused)
-    return apply_folded_suffix(folded, config, x, 0, fused=fused)
+def apply_folded(folded, config, x, *, fused=False, dw_taps_kernels=(),
+                 dw_pallas_kernels=(), stem_im2col=False):
+    """Full folded forward: (N, ps, ps, 3) -> (N, feature_dim) float32,
+    under the schedule options of ``apply_folded_prefix`` / ``_suffix``."""
+    opts = dict(fused=fused, dw_taps_kernels=dw_taps_kernels,
+                dw_pallas_kernels=dw_pallas_kernels)
+    x = apply_folded_prefix(folded, config, x, 0, stem_im2col=stem_im2col,
+                            **opts)
+    return apply_folded_suffix(folded, config, x, 0, **opts)

@@ -120,3 +120,47 @@ def test_fused_extractor_matches_cpu_module(cuda, name):
     want = cpu.extract_features(image, pts)
     rel = np.abs(got - want).max() / np.abs(want).max()
     assert rel < 1e-4, rel
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_kernel_equals_plain_bitwise(cuda, name, dtype):
+    """Every stride-1 depthwise geometry of the config (odd maps, widths
+    that are not multiples of the kernel's 32-channel tile): the kernel
+    equals its plain version bit for bit."""
+    from mermaid_classifier_tpu_torch.ops import depthwise as dw
+
+    rng = np.random.default_rng(4)
+    geoms = {(m.h, m.mid_channels, m.kernel)
+             for m in fm.block_metas(CONFIGS[name]) if m.stride == 1}
+    assert geoms
+    for h, c, k in sorted(geoms):
+        x = torch.from_numpy(rng.standard_normal((9, h, h, c)).astype(
+            np.float32)).to(cuda, dtype)
+        w = torch.from_numpy((rng.standard_normal((k, k, c)) * 0.2).astype(
+            np.float32)).to(cuda)
+        b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+        before = dw.launches
+        got = dw.depthwise_conv(x, w, b, kernel=k)
+        assert dw.launches == before + 1
+        want = dw.depthwise_conv_reference(x, w, b, kernel=k)
+        assert torch.equal(got, want), (h, c, k)
+
+
+def test_fused_w8_schedule_launches_and_passes_gate(cuda):
+    """``folded+fused+w8`` (int8 triples into the fused kernel's wrapper)
+    launches the fused kernel once per fusable block and agrees with
+    ``folded`` at the 0.999 cosine gate."""
+    from mermaid_classifier_tpu_torch.experiments import trunk_ab as ta
+
+    config = CONFIGS["b0_60px"]
+    variables = _perturbed_variables(config, np.random.default_rng(5))
+    f_ref, w_ref = ta.build_forward("folded", None, variables, config,
+                                    device=cuda)
+    f_w8, w_w8 = ta.build_forward("folded+fused+w8", None, variables, config,
+                                  device=cuda)
+    before = fm.launches
+    cos = ta.gate_cosine(f_ref, w_ref, f_w8, w_w8, config, device=cuda,
+                         chunk=16)
+    assert fm.launches - before == sum(map(fm.fusable, fm.block_metas(config)))
+    assert cos >= 0.999, cos
