@@ -34,14 +34,24 @@ Phases, one output line each:
    of each timed run equal to ``AB_PER_CHUNK``; then the harness's CLI
    ``main`` once at 256 points with its numerics gate, which must print no
    ``[FAIL]``.
-8. times  — CUDA-event times of each kernel and its plain version (and, per
-   depthwise geometry, cuDNN's depthwise conv as the ``folded`` schedule
-   runs it), trunk patch-features/s at batch 128 (bf16 and f32; fused
-   kernel blocks and plain "folded" blocks), p50 latency of a 25-point
-   request.
+8. times  — CUDA-event times of each kernel and its plain version (per
+   fused block also the ``folded`` route's block, cuDNN/cuBLAS with TF32
+   off, and its three passes' device time from ``torch.profiler``; per
+   depthwise geometry cuDNN's depthwise conv as the ``folded`` schedule runs
+   it), each beside its bound; trunk patch-features/s at
+   batch 128 (bf16 and f32; fused kernel blocks and plain "folded" blocks),
+   p50 latency of a 25-point request and its stages.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of kernel
 results, and as the last line ``{"ok": true, "device": {...}}``.
+
+A kernel's bound (``bound_ms``) is the least time the card could take for
+its work at the shapes of this run: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s, and its
+operations over the card's peak rate for their type (989 TFLOP/s bf16 and
+495 TFLOP/s TF32 on the tensor cores, the f32 products counted as the three
+TF32 products the fused kernel runs; 67 TFLOP/s f32 on the CUDA cores),
+from NVIDIA's H100 SXM data sheet.
 """
 
 from __future__ import annotations
@@ -73,6 +83,60 @@ AB_PER_CHUNK = {
 AB_POINTS, AB_WARMUP, AB_ITERS, AB_REPEATS = 512, 2, 3, 3
 
 
+HBM_BYTES_S = 3.35e12
+PEAK_FLOP_S = {"bf16_tc": 989e12, "tf32_tc": 495e12, "f32": 67e12}
+
+
+def bound(n_bytes: float, flops: dict) -> tuple[float, float, float]:
+    """(bound ms, bytes ms, operations ms) for ``n_bytes`` moved and
+    ``flops`` {peak name: operations} done."""
+    bytes_ms = n_bytes / HBM_BYTES_S * 1e3
+    ops_ms = sum(f / PEAK_FLOP_S[kind] for kind, f in flops.items()) * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+def bound_by(bytes_ms: float, ops_ms: float) -> str:
+    return "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def fused_bound(meta, cse: int, n: int, bf16: bool):
+    """Bound of one fused block over n patches: x in and out in the
+    activation type, f32 weights; both 1x1 products on the tensor cores
+    (bf16, or split TF32 at three products for f32), the depthwise taps and
+    the SE products in f32 on the CUDA cores."""
+    hw, cin, cmid = meta.h * meta.w, meta.in_channels, meta.mid_channels
+    cout, k = meta.out_channels, meta.kernel
+    item = 2 if bf16 else 4
+    weights = (cin * cmid + cmid * cout + k * k * cmid + 2 * cmid * cse
+               + 3 * cmid + cse + cout)
+    n_bytes = n * hw * (cin + cout) * item + 4 * weights
+    products = 2.0 * n * hw * (cin * cmid + cmid * cout)
+    flops = {"bf16_tc": products} if bf16 else {"tf32_tc": 3 * products}
+    flops["f32"] = 2.0 * n * (hw * cmid * k * k + 2 * cmid * cse)
+    return bound(n_bytes, flops)
+
+
+def depthwise_bound(h: int, c: int, k: int, n: int, bf16: bool):
+    """Bound of one k x k depthwise conv over n maps of h x h x c."""
+    item = 2 if bf16 else 4
+    n_bytes = 2 * n * h * h * c * item + 4 * (k * k * c + c)
+    return bound(n_bytes, {"f32": 2.0 * n * h * h * c * k * k})
+
+
+def crop_bound(starts, ps: int, bf16: bool):
+    """Bound of the crop: the distinct image pixels the crops cover (u8 x3)
+    read once, the patches written once, one multiply-add per output."""
+    import numpy as np
+
+    rows, cols = starts[:, 0], starts[:, 1]
+    covered = np.zeros((int(rows.max()) + ps, int(cols.max()) + ps), bool)
+    for r, c in zip(rows, cols):
+        covered[r:r + ps, c:c + ps] = True
+    out = len(starts) * ps * ps * 3
+    n_bytes = 3 * int(covered.sum()) + out * (2 if bf16 else 4)
+    return bound(n_bytes, {"f32": 2.0 * out})
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -96,6 +160,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def pass_ms(fn, names, iters: int = 5) -> dict:
+    """Device milliseconds per call of ``fn`` in each kernel whose name
+    holds one of ``names`` (torch.profiler over ``iters`` calls after a
+    warm-up); {} if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        for name in names:
+            if name in ev.key and us:
+                out[name] = out.get(name, 0.0) + us / iters / 1e3
+    return out
 
 
 def rel_err(got, want) -> float:
@@ -506,14 +592,22 @@ def phase_times(config, folded, results, extractor, run25, smi):
         k_ms = cuda_ms(lambda: extract_patches(image, starts, ps, scale, bias, dtype))
         p_ms = cuda_ms(lambda: extract_patches_plain(
             image, starts_dev, ps, scale_dev, bias_dev, dtype))
+        b_ms, bytes_ms, ops_ms = crop_bound(starts, ps, dtype == torch.bfloat16)
         say(f"time crop {PATCHES} patches {str(dtype)[6:]}: kernel {k_ms:.4f} ms,"
-            f" plain {p_ms:.4f} ms")
+            f" plain {p_ms:.4f} ms, bound {b_ms:.4f} ms"
+            f" ({bound_by(bytes_ms, ops_ms)})")
         if dtype == extractor.dtype:
-            results["patch_crop"].update(ms=k_ms, plain_ms=p_ms)
+            results["patch_crop"].update(
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=bound_by(bytes_ms, ops_ms), library_ms=None)
 
-    sums = {}
+    # Fused blocks: the kernel (and its three passes' device time), its
+    # plain version, the "folded" route's block (cuDNN/cuBLAS, TF32 off) and
+    # the bound; then the 11-block sums.
+    passes = ("expand_dw_kernel", "se_kernel", "project_kernel")
     for dtype in (torch.float32, torch.bfloat16):
-        k_sum = p_sum = 0.0
+        sums = [0.0] * 6  # kernel, plain, folded, bound, bytes, operations
+        pass_sums = dict.fromkeys(passes, 0.0)
         for i, blk in enumerate(folded["blocks"]):
             meta = blk["meta"]
             if not fm.fusable(meta):
@@ -524,22 +618,34 @@ def phase_times(config, folded, results, extractor, run25, smi):
             k_ms = cuda_ms(lambda: fm.fused_mbconv(x, blk), iters=10)
             with fm.full_f32():
                 p_ms = cuda_ms(lambda: fm.fused_mbconv_reference(x, blk), iters=10)
-            k_sum += k_ms
-            p_sum += p_ms
+                f_ms = cuda_ms(lambda: fm._block_plain(x, blk, dtype), iters=10)
+            b = fused_bound(meta, blk["se_reduce"][0].shape[1], PATCHES,
+                            dtype == torch.bfloat16)
+            by_pass = pass_ms(lambda: fm.fused_mbconv(x, blk), passes)
+            sums = [s + t for s, t in zip(sums, (k_ms, p_ms, f_ms, *b))]
+            for name in passes:
+                pass_sums[name] += by_pass.get(name, float("nan"))
             say(f"time fused block {i} ({meta.h}^2 {meta.in_channels}->"
                 f"{meta.mid_channels}->{meta.out_channels} k{meta.kernel})"
-                f" {str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-        sums[dtype] = (k_sum, p_sum)
-        say(f"time fused 11 blocks {str(dtype)[6:]}: kernel {k_sum:.4f} ms,"
-            f" plain {p_sum:.4f} ms")
-    k_sum, p_sum = sums[extractor.dtype]
-    results["fused_mbconv"].update(ms=k_sum, plain_ms=p_sum)
+                f" {str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms,"
+                f" folded {f_ms:.4f} ms, bound {b[0]:.4f} ms"
+                f" ({bound_by(*b[1:])}); passes (profiler) " + ", ".join(
+                    f"{name} {by_pass[name]:.4f}" if name in by_pass
+                    else f"{name} not measured" for name in passes))
+        say(f"time fused 11 blocks {str(dtype)[6:]}: kernel {sums[0]:.4f} ms,"
+            f" plain {sums[1]:.4f} ms, folded {sums[2]:.4f} ms, bound"
+            f" {sums[3]:.4f} ms ({bound_by(*sums[4:])}); passes (profiler) "
+            + ", ".join(f"{name} {v:.4f}" for name, v in pass_sums.items()))
+        if dtype == extractor.dtype:
+            results["fused_mbconv"].update(
+                ms=sums[0], plain_ms=sums[1], bound_ms=sums[3],
+                bound_by=bound_by(*sums[4:]), library_ms=None)
 
     # Depthwise per geometry: the kernel, its plain version, and cuDNN's
     # grouped conv plus bias as the "folded" schedule runs it. The sums
     # weight each geometry by its count among B0 224's 12 stride-1 blocks.
     for dtype in (torch.float32, torch.bfloat16):
-        sums = [0.0, 0.0, 0.0]
+        sums = [0.0] * 6  # kernel, plain, cuDNN, bound, bytes, operations
         for h, c, k, blocks in depthwise_geometries(config):
             x, w, b = depthwise_inputs(rng, h, c, k)
             x = x.to(dtype)
@@ -553,14 +659,19 @@ def phase_times(config, folded, results, extractor, run25, smi):
                     cuda_ms(lambda: fm._conv_nhwc(x, w_oihw, 1, (pads, pads), c,
                                                   dtype) + b.to(dtype)),
                 )
-            sums = [s + blocks * t for s, t in zip(sums, times)]
+            b = depthwise_bound(h, c, k, PATCHES, dtype == torch.bfloat16)
+            sums = [s + blocks * t for s, t in zip(sums, (*times, *b))]
             say(f"time depthwise {h}^2x{c} k{k} ({blocks} B0 blocks)"
                 f" {str(dtype)[6:]}: kernel {times[0]:.4f} ms, plain"
-                f" {times[1]:.4f} ms, cuDNN {times[2]:.4f} ms")
+                f" {times[1]:.4f} ms, cuDNN {times[2]:.4f} ms, bound"
+                f" {b[0]:.4f} ms ({bound_by(*b[1:])})")
         say(f"time depthwise 12 B0 blocks {str(dtype)[6:]}: kernel"
-            f" {sums[0]:.4f} ms, plain {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms")
+            f" {sums[0]:.4f} ms, plain {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms,"
+            f" bound {sums[3]:.4f} ms ({bound_by(*sums[4:])})")
         if dtype == extractor.dtype:
-            results["depthwise_conv"].update(ms=sums[0], plain_ms=sums[1])
+            results["depthwise_conv"].update(
+                ms=sums[0], plain_ms=sums[1], bound_ms=sums[3],
+                bound_by=bound_by(*sums[4:]), library_ms=sums[2])
 
     patches = torch.from_numpy(
         rng.random((PATCHES, ps, ps, 3)).astype(np.float32)).cuda()
@@ -655,7 +766,8 @@ def main() -> None:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{key: results[name][key]
-            for key in ("launches", "max_abs_err", "ms", "plain_ms")}}
+            for key in ("launches", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}}
         for name, (src, rep) in sources.items()
     ]
     say(smi)

@@ -20,10 +20,16 @@ Port of ``mermaid_classifier_tpu/ops/fused_mbconv.py``:
   the plain tap sum ``_dw_taps``, and the rest go to cuDNN;
   ``stem_im2col`` runs the stem as ``_stem_im2col``.
 - ``fused_mbconv`` runs one stride-1 block: the kernel in
-  ``csrc/fused_mbconv.cu`` for a CUDA tensor (its note says what bounds it
-  and how it is split at the squeeze-excite mean), the plain version
+  ``csrc/fused_mbconv.cu`` for a CUDA tensor, the plain version
   ``fused_mbconv_reference`` for a CPU tensor. ``launches`` counts kernel
-  launch groups (one per call: expand+depthwise, SE, project).
+  launch groups (one per call: expand+depthwise, SE, project). The kernel
+  is split at the squeeze-excite mean; its two 1x1 products run on the
+  tensor cores (``mma.sync``: bf16 operands for bf16 activations, split
+  TF32 for f32), so what bounds it is the depthwise taps on the CUDA cores,
+  the shared-memory staging and the f32 round trip of the depthwise output
+  through device memory (the source's note counts the bound). For bf16
+  activations the kernel rounds the expand and project weights to bf16
+  once, and the plain version does the same.
 
 The TPU kernel's ``dw_layout`` and ``acc_dtype`` options are schedule knobs
 of its VMEM layout; the port carries the f32-accumulator semantics only.
@@ -50,9 +56,10 @@ from mermaid_classifier_tpu_torch.ops.depthwise import depthwise_conv
 
 launches = 0
 
-# Shared memory one pass-1 block may take: two blocks fit one SM's 227 KB.
+# Shared memory one pass-1 block may take: two blocks fit one SM's 227 KB
+# (csrc/fused_mbconv.cu kPass1SmemBudget).
 _PASS1_SMEM_BUDGET = 110 * 1024
-_KTC, _KWARPS = 32, 8  # csrc/fused_mbconv.cu kTC, kWarps
+_KTC, _KZS, _KWARPS = 32, 33, 8  # csrc/fused_mbconv.cu kTC, kZs, kWarps
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +268,9 @@ def _fused_weights(blk: dict) -> list[torch.Tensor]:
 
 def fused_mbconv_reference(x: torch.Tensor, blk: dict) -> torch.Tensor:
     """Plain PyTorch version of the fused block (stride 1, with an
-    expansion), with the kernel's rounding sites: expand + SiLU in f32 then
-    cast to x.dtype; depthwise as an f32 tap sum over the zero-padded
+    expansion), with the kernel's rounding sites: the expand and project
+    weights rounded to x.dtype; expand + SiLU in f32 then cast to x.dtype;
+    depthwise as an f32 tap sum over the zero-padded
     expanded map; SE in f32; m cast to x.dtype; project in f32; residual
     added in f32; cast. (P, H, W, Cin) -> (P, H, W, Cout) in x.dtype."""
     meta: BlockMeta = blk["meta"]
@@ -272,6 +280,9 @@ def fused_mbconv_reference(x: torch.Tensor, blk: dict) -> torch.Tensor:
     p = (k - 1) // 2
     xf = x.float()
     wexp, bexp, wdw, bdw, w1, b1, w2, b2, wproj, bproj = _fused_weights(blk)
+    # The kernel's tensor-core operands: bf16 activations take the 1x1
+    # weights rounded to bf16 (a no-op round trip for f32).
+    wexp, wproj = wexp.to(act).float(), wproj.to(act).float()
     z = F.silu(torch.matmul(xf, wexp) + bexp).to(act).float()
     zp = F.pad(z, (0, 0, p, p, p, p))  # zero pad H and W of NHWC
     acc = torch.zeros_like(z) + bdw
@@ -289,20 +300,32 @@ def fused_mbconv_reference(x: torch.Tensor, blk: dict) -> torch.Tensor:
     return y.to(act)
 
 
-def _pass1_smem_floats(rows: int, w: int, cin: int, k: int) -> int:
-    """csrc/fused_mbconv.cu pass1_smem_floats."""
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _pass1_smem_floats(rows: int, w: int, cin: int, k: int,
+                       bf16: bool) -> int:
+    """csrc/fused_mbconv.cu pass1_smem_floats: staged input rows (row
+    stride a_stride), expand weights (K padded to 16, row stride b_stride),
+    the padded expanded map and the partial-sum reduction."""
     p = (k - 1) // 2
     zrows = rows + 2 * p
-    return (zrows * w * cin + cin * _KTC + zrows * (w + 2 * p) * _KTC
-            + k * k * _KTC + _KWARPS * _KTC)
+    a_stride = (_round_up(cin - 8, 16) + 8 if bf16
+                else _round_up(cin - 4, 8) + 4)
+    b_stride = _KTC + (4 if bf16 else 8)
+    return (zrows * w * a_stride + _round_up(cin, 16) * b_stride
+            + zrows * (w + 2 * p) * _KZS + _KWARPS * _KTC)
 
 
-def rows_per_tile(meta: BlockMeta) -> int:
-    """Output rows per pass-1 tile: the most (up to 16) whose staged input,
-    expanded map and weights fit the shared-memory budget."""
+def rows_per_tile(meta: BlockMeta, dtype: torch.dtype) -> int:
+    """Output rows per pass-1 tile for activations of ``dtype``: the most
+    (up to 16) whose staged input, expanded map and weights fit the
+    shared-memory budget."""
+    bf16 = dtype == torch.bfloat16
     for rows in range(min(meta.h, 16), 0, -1):
         if 4 * _pass1_smem_floats(rows, meta.w, meta.in_channels,
-                                  meta.kernel) <= _PASS1_SMEM_BUDGET:
+                                  meta.kernel, bf16) <= _PASS1_SMEM_BUDGET:
             return rows
     raise ValueError(f"block {meta} does not fit the fused kernel's tiles")
 
@@ -332,6 +355,8 @@ def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
         raise ValueError(f"fused_mbconv runs on cpu or cuda, not {x.device}")
 
     cmid, cout, k = meta.mid_channels, meta.out_channels, meta.kernel
+    if k not in (3, 5):
+        raise ValueError(f"the fused kernel takes depthwise k 3 or 5, got {k}")
     tensors = _fused_weights(blk)
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
@@ -340,7 +365,7 @@ def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
                 " activations' device (ops.fused_mbconv.to_device)"
             )
     cse = blk["se_reduce"][0].shape[1]
-    rows = rows_per_tile(meta)
+    rows = rows_per_tile(meta, x.dtype)
     n_tiles = -(-h // rows)
     x = x.contiguous()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)

@@ -5,6 +5,8 @@ imports no jax, so it runs on a card machine without jax, skipping the
 repo's jax-pinning conftest:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m requires_cuda``."""
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -78,28 +80,86 @@ def test_crop_kernel_equals_plain_bitwise(cuda, out_dtype, ps):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
-                                         (torch.bfloat16, 0.05)])
-def test_fused_kernel_matches_plain(cuda, name, dtype, bound):
+def _fused_rels(cuda, name, dtype, patches, only=None):
+    """Max rel of the fused kernel against its plain version, on
+    ``patches`` seeded patches, for each fusable block of the config, or
+    for the blocks of (Cin, Cmid, Cout) ``only``, run at stride 1 on their
+    input map."""
     config = CONFIGS[name]
     rng = np.random.default_rng(1)
     folded = fm.to_device(
         fm.fold_backbone(_perturbed_variables(config, rng), config), cuda)
-    checked = 0
+    rels = []
     for blk in folded["blocks"]:
         meta = blk["meta"]
+        if only is not None:
+            if only != (meta.in_channels, meta.mid_channels, meta.out_channels):
+                continue
+            meta = replace(meta, stride=1, residual=False)
+            blk = {**blk, "meta": meta}
         if not fm.fusable(meta):
             continue
         x = torch.from_numpy(rng.standard_normal(
-            (9, meta.h, meta.w, meta.in_channels)).astype(np.float32)).to(cuda, dtype)
+            (patches, meta.h, meta.w, meta.in_channels)).astype(np.float32)).to(cuda, dtype)
+        before = fm.launches
         got = fm.fused_mbconv(x, blk)
+        assert fm.launches == before + 1
         with fm.full_f32():
             want = fm.fused_mbconv_reference(x, blk)
-        rel = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        rels.append((float((got.float() - want.float()).abs().max()
+                           / want.float().abs().max()), meta))
+    return rels
+
+
+# (config, patches, blocks): the three configs at 9 patches; the narrow
+# config's 9^2 k5 block whose K and N are no multiple of the mma tile (Cin
+# 12, Cmid 72, Cout 20; stride 2 in the config, run at stride 1); 1 and 3
+# patches for the M tails (49 and 196 positions of a 64-position tile at B0
+# 224).
+FUSED_CASES = {
+    "b0_224": ("b0_224", 9, None),
+    "b0_60px": ("b0_60px", 9, None),
+    "narrow_36px": ("narrow_36px", 9, None),
+    "narrow_12_72_20": ("narrow_36px", 9, (12, 72, 20)),
+    "b0_224_1_patch": ("b0_224", 1, None),
+    "b0_224_3_patches": ("b0_224", 3, None),
+    "narrow_36px_1_patch": ("narrow_36px", 1, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 0.05)])
+def test_fused_kernel_matches_plain(cuda, case, dtype, bound):
+    name, patches, only = FUSED_CASES[case]
+    rels = _fused_rels(cuda, name, dtype, patches, only)
+    assert rels
+    for rel, meta in rels:
         assert rel <= bound, (meta, rel)
-        checked += 1
-    assert checked
+
+
+def test_fused_kernel_f32_at_every_b0_224_block(cuda):
+    """Split TF32 keeps f32 accuracy: rel <= 1e-5 at all 11 fusable B0 224
+    blocks (9 patches)."""
+    rels = _fused_rels(cuda, "b0_224", torch.float32, 9)
+    assert len(rels) == 11
+    assert max(r for r, _ in rels) <= 1e-5, rels
+
+
+def test_fused_kernel_rejects_other_k(cuda):
+    """The kernel holds its taps in registers for k 3 and 5 (every
+    EfficientNet size); another k on the card raises before any launch."""
+    config = CONFIGS["narrow_36px"]
+    folded = fm.to_device(fm.fold_backbone(
+        _perturbed_variables(config, np.random.default_rng(6)), config), cuda)
+    blk = next(b for b in folded["blocks"] if fm.fusable(b["meta"]))
+    meta = replace(blk["meta"], kernel=7)
+    x = torch.zeros((1, meta.h, meta.w, meta.in_channels), device=cuda)
+    before = fm.launches
+    with pytest.raises(ValueError, match="k 3 or 5"):
+        fm.fused_mbconv(x, {**blk, "meta": meta})
+    assert fm.launches == before
 
 
 @pytest.mark.parametrize("name", ["b0_60px", "narrow_36px"])

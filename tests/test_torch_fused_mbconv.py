@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mermaid_classifier_tpu.models.efficientnet import EfficientNetConfig
 from mermaid_classifier_tpu.ops import fused_mbconv as jfm
@@ -166,13 +167,79 @@ class TestFusedBlock:
         tfm.fused_mbconv(torch.zeros((1, m.h, m.w, m.in_channels)), blk)
         assert tfm.launches == before
 
-    def test_rows_per_tile_fits_shared_memory_at_224(self):
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_rows_per_tile_fits_shared_memory_at_224(self, dtype):
         """Every fusable B0 block at 224 px gets a tile of >= 5 rows inside
-        the pass-1 shared-memory budget (the kernel's own formula)."""
+        the pass-1 shared-memory budget (the kernel's own formula, with the
+        activation type's padded row strides)."""
+        bf16 = dtype == torch.bfloat16
+        checked = 0
         for meta in tfm.block_metas(port_config(EfficientNetConfig())):
             if tfm.fusable(meta):
-                rows = tfm.rows_per_tile(meta)
+                rows = tfm.rows_per_tile(meta, dtype)
                 assert 5 <= rows <= meta.h
                 smem = 4 * tfm._pass1_smem_floats(rows, meta.w, meta.in_channels,
-                                                  meta.kernel)
+                                                  meta.kernel, bf16)
                 assert smem <= tfm._PASS1_SMEM_BUDGET
+                # One row more would not fit, unless the tile is the map.
+                if rows < min(meta.h, 16):
+                    assert 4 * tfm._pass1_smem_floats(
+                        rows + 1, meta.w, meta.in_channels, meta.kernel,
+                        bf16) > tfm._PASS1_SMEM_BUDGET
+                checked += 1
+        assert checked == 11
+
+    def test_smem_row_strides_avoid_bank_conflicts(self):
+        """The staged input's row stride is >= Cin and is 8 mod 16 for bf16
+        (pairs read by 4 rows x 4 lanes) and 4 mod 8 for f32 (singles read
+        by 8 rows x 4 lanes)."""
+        for cin in range(1, 300):
+            base = tfm._pass1_smem_floats(1, 1, cin, 1, True)
+            a_bf16 = base - (tfm._round_up(cin, 16) * 36 + 33 + 256)
+            base = tfm._pass1_smem_floats(1, 1, cin, 1, False)
+            a_f32 = base - (tfm._round_up(cin, 16) * 40 + 33 + 256)
+            assert a_bf16 >= cin and a_bf16 % 16 == 8 and a_bf16 - cin < 16
+            assert a_f32 >= cin and a_f32 % 8 == 4 and a_f32 - cin < 8
+
+    @pytest.mark.parametrize("case", ["rounded_weights_bitwise", "composition"])
+    def test_bf16_plain_rounds_1x1_weights(self, bundle, case):
+        """In bf16 the plain version feeds its 1x1 products the weights
+        rounded to bf16, as the kernel's tensor-core operands are: its output
+        is unchanged when those weights arrive pre-rounded, and it agrees
+        with a hand-written composition (einsum 1x1s, grouped conv2d
+        depthwise) that rounds them. In f32 nothing is rounded."""
+        _, _, dev = bundle
+        index = _fusable_indices(CONFIG)[1]
+        blk = dev["blocks"][index]
+        meta = blk["meta"]
+        x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+            (2, meta.h, meta.w, meta.in_channels)).astype(np.float32))
+        rounded = dict(blk)
+        for key in ("expand", "project"):
+            w, b = blk[key]
+            rounded[key] = (w.to(torch.bfloat16).float(), b)
+        xb = x.to(torch.bfloat16)
+        got = tfm.fused_mbconv_reference(xb, blk)
+        if case == "rounded_weights_bitwise":
+            assert torch.equal(got, tfm.fused_mbconv_reference(xb, rounded))
+            assert not torch.equal(tfm.fused_mbconv_reference(x, blk),
+                                   tfm.fused_mbconv_reference(x, rounded))
+            return
+        wexp = rounded["expand"][0][0, 0]
+        wproj = rounded["project"][0][0, 0]
+        bexp, (wdw, bdw) = blk["expand"][1], blk["depthwise"]
+        (w1, b1), (w2, b2) = blk["se_reduce"], blk["se_expand"]
+        k = meta.kernel
+        z = F.silu(torch.einsum("nhwc,cm->nhwm", xb.float(), wexp) + bexp)
+        z = z.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+        dconv = F.conv2d(z, wdw.permute(2, 0, 1).unsqueeze(1), bdw,
+                         padding=(k - 1) // 2, groups=meta.mid_channels)
+        d = F.silu(dconv).permute(0, 2, 3, 1)
+        e = torch.sigmoid(F.silu(d.mean(dim=(1, 2)) @ w1 + b1) @ w2 + b2)
+        m = (d * e[:, None, None, :]).to(torch.bfloat16).float()
+        want = torch.einsum("nhwm,mo->nhwo", m, wproj) + blk["project"][1]
+        if meta.residual:
+            want = want + xb.float()
+        diff = (got.float() - want.to(torch.bfloat16).float()).abs().max()
+        # Sums in another order may move a bf16 rounding by one ulp.
+        assert float(diff) <= 2.0 ** -7 * float(want.abs().max())
