@@ -14,7 +14,8 @@ Phases, one output line each:
    image, 25 and 128 points with edge points, f32 and bf16): bitwise equal.
 3. fused  — the fused-MBConv kernel against its plain version for each of the
    11 fusable B0 blocks at 224 px, 128 patches: rel <= 1e-5 at f32 (TF32
-   off), rel <= 0.05 at bf16.
+   off), rel <= 1e-2 at bf16 (the plain version rounds where the kernel
+   does; a sound kernel reads about 3.6e-3).
 4. depthwise — the k x k depthwise kernel against its plain version at 128
    patches, f32 and bf16, on the 8 distinct geometries of B0 224's 12
    stride-1 depthwise convs and one odd map (15^2 x 72, k5): bitwise equal.
@@ -46,12 +47,14 @@ Then the card's name and power limit (nvidia-smi), one JSON line of kernel
 results, and as the last line ``{"ok": true, "device": {...}}``.
 
 A kernel's bound (``bound_ms``) is the least time the card could take for
-its work at the shapes of this run: the larger of the bytes it must move
-(each input read once, each output written once) over 3.35 TB/s, and its
-operations over the card's peak rate for their type (989 TFLOP/s bf16 and
-495 TFLOP/s TF32 on the tensor cores, the f32 products counted as the three
-TF32 products the fused kernel runs; 67 TFLOP/s f32 on the CUDA cores),
-from NVIDIA's H100 SXM data sheet.
+its work at the shapes of this run: the largest of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s, and, for
+each type of operation, those operations over the card's peak rate for
+that type (989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor cores, the
+f32 products counted as the three TF32 products the fused kernel runs; 67
+TFLOP/s f32 on the CUDA cores), from NVIDIA's H100 SXM data sheet. The
+memory, the tensor cores and the CUDA cores work at once, so the times are
+not added.
 """
 
 from __future__ import annotations
@@ -89,9 +92,10 @@ PEAK_FLOP_S = {"bf16_tc": 989e12, "tf32_tc": 495e12, "f32": 67e12}
 
 def bound(n_bytes: float, flops: dict) -> tuple[float, float, float]:
     """(bound ms, bytes ms, operations ms) for ``n_bytes`` moved and
-    ``flops`` {peak name: operations} done."""
+    ``flops`` {peak name: operations} done; operations ms is that of the
+    unit that takes longest."""
     bytes_ms = n_bytes / HBM_BYTES_S * 1e3
-    ops_ms = sum(f / PEAK_FLOP_S[kind] for kind, f in flops.items()) * 1e3
+    ops_ms = max(f / PEAK_FLOP_S[kind] for kind, f in flops.items()) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
@@ -294,7 +298,7 @@ def phase_fused(config, folded, results):
             continue
         x = torch.from_numpy(rng.standard_normal(
             (PATCHES, meta.h, meta.w, meta.in_channels)).astype(np.float32)).cuda()
-        for dtype, bound in ((torch.float32, 1e-5), (torch.bfloat16, 0.05)):
+        for dtype, bound in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
             xin = x.to(dtype)
             got = fm.fused_mbconv(xin, blk)
             with fm.full_f32():
@@ -312,7 +316,7 @@ def phase_fused(config, folded, results):
     f32 = max(r for (_, d), r in rels.items() if d == torch.float32)
     bf16 = max(r for (_, d), r in rels.items() if d == torch.bfloat16)
     say(f"fused: 11 blocks x {PATCHES} patches, max rel f32 {f32:.3e}"
-        f" (<= 1e-5), bf16 {bf16:.3e} (<= 0.05)")
+        f" (<= 1e-5), bf16 {bf16:.3e} (<= 1e-2)")
 
 
 def depthwise_geometries(config):

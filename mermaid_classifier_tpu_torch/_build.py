@@ -34,8 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C signatures of the exported launchers (csrc/*.cu); each returns the
-# cudaError_t of its launches as an int.
+# C signatures of the exported functions (csrc/*.cu), all returning an int:
+# each launcher the cudaError_t of its launches, the two pass-1 queries the
+# fused kernel's shared-memory bytes for a tile and its budget.
 _SIGNATURES = {
     "mct_patch_crop": [
         _P, _I, _P, _I, _I,              # image, wp, starts, n_points, ps
@@ -50,6 +51,10 @@ _SIGNATURES = {
         _P, _P, _P,                      # d scratch, partial sums, SE scale
         _I, _P,                          # rows per tile, stream
     ],
+    "mct_fused_pass1_smem_bytes": [
+        _I, _I, _I, _I, _I,              # act_bf16, rows, w, cin, k
+    ],
+    "mct_fused_pass1_smem_budget": [],
     "mct_depthwise": [
         _P, _P, _I,                      # x, out, act_bf16
         _I, _I, _I, _I, _I,              # n, h, w, c, k

@@ -11,10 +11,12 @@
 // What bounds it on the H100. Over the 11 fusable blocks of B0 at 224 px and
 // 128 patches, the two 1x1 products are 30.4 GMAC (60.9 GFLOP), the depthwise
 // convs 3.1 GMAC, and the activations the block must read and write 134 MB in
-// bf16. At 989 TFLOP/s (bf16 tensor cores), 67 TFLOP/s (f32 CUDA cores) and
-// 3.35 TB/s that is at least 0.15 ms in bf16; in f32, with the products as
-// split TF32 (3 x 60.9 GFLOP at 495 TFLOP/s), at least 0.46 ms. The
-// operations bound both.
+// bf16. The tensor cores, the CUDA cores and the memory work at once, so a
+// block's least time is the longest of its three times, and the 11 blocks
+// take at least 0.10 ms in bf16: the depthwise at 67 TFLOP/s (f32 CUDA
+// cores) bounds the 56^2, 28^2 and 14^2 k5 blocks, the products at 989
+// TFLOP/s the others, and the bytes at 3.35 TB/s none. In f32 the products
+// as split TF32 (3 x 60.9 GFLOP at 495 TFLOP/s) bound every block: 0.37 ms.
 //
 // The design. The TPU kernel keeps a patch's whole expanded map (up to
 // 56*56*144) in 16 MB of VMEM. A Hopper block has at most 227 KB of shared
@@ -29,8 +31,9 @@
 //      stores into a zero-padded map (each block writes its own halo zeros:
 //      the expanded map is what is padded). Then the depthwise + bias + SiLU
 //      in f32, each lane holding its channel's k*k taps and bias in
-//      registers; d goes to an f32 scratch tensor and the tile's
-//      per-channel sums to a (P, tiles, Cmid) buffer (no atomics).
+//      registers (k 3 and 5; another odd k reads its taps through L1); d
+//      goes to an f32 scratch tensor and the tile's per-channel sums to a
+//      (P, tiles, Cmid) buffer (no atomics).
 //   2. se_kernel, one block per patch: reduces the partial sums, divides by
 //      H*W, runs FC + SiLU and FC + sigmoid into e (P, Cmid).
 //   3. project_kernel, one block per (64 out channels, 64 positions, patch):
@@ -51,8 +54,9 @@
 // avoid bank conflicts.
 //
 // Still open: the f32 round trip of d through device memory (0.72 GB
-// written and read back per 128-patch B0 chunk), the expand recomputed on the 2p halo rows of every
-// tile, wgmma/TMA/cp.async staging, and bf16 shared-memory tiles.
+// written and read back per 128-patch B0 chunk), the expand recomputed on
+// the 2p halo rows of every tile, wgmma/TMA/cp.async staging, and bf16
+// shared-memory tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,7 +130,8 @@ __host__ __device__ constexpr int round_up(int v, int m) {
 
 // Shared-memory floats pass 1 needs for a tile of `rows` output rows. The
 // Python wrapper (ops/fused_mbconv.py:_pass1_smem_floats) uses the same
-// formula to choose `rows`.
+// formula to choose `rows`; mct_fused_pass1_smem_bytes below lets the card
+// tests hold the two against each other.
 template <typename T>
 __host__ __device__ inline int pass1_smem_floats(int rows, int w, int cin,
                                                  int k) {
@@ -248,16 +253,18 @@ __device__ __forceinline__ void warp_mma(float (&c)[NT][4],
   }
 }
 
-// K: the depthwise kernel size (3 or 5).
+// K: the depthwise kernel size, whose taps each lane holds in registers;
+// K = 0 takes the odd size k at run time and reads the taps through L1.
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
-    const T* __restrict__ x, int h, int w, int cin, int cmid,
+    const T* __restrict__ x, int h, int w, int cin, int cmid, int k,
     const float* __restrict__ wexp,
     const float* __restrict__ bexp, const float* __restrict__ wdw,
     const float* __restrict__ bdw, float* __restrict__ d,
     float* __restrict__ partial, int rows_per_tile) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int p = (K - 1) / 2;
+  const int kk = K > 0 ? K : k;
+  const int p = (kk - 1) / 2;
   const int tile = blockIdx.x;
   const int n_tiles = gridDim.x;
   const int c0 = blockIdx.y * kTC;
@@ -412,7 +419,7 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
   const int c = c0 + lane;
   const bool c_ok = c < cmid;
   const float bd = c_ok ? bdw[c] : 0.0f;
-  float taps[K * K];
+  float taps[K > 0 ? K * K : 1];
 #pragma unroll
   for (int i = 0; i < K * K; ++i) {
     taps[i] = c_ok ? wdw[(size_t)i * cmid + c] : 0.0f;
@@ -429,15 +436,24 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
 #pragma unroll
     for (int r = 0; r < kR; ++r) acc[r] = bd;
 #pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
+    for (int dy = 0; dy < kk; ++dy) {
       const float* zrow = zs + ((ty + dy) * wz + x0) * kZs + lane;
-      float zv[kR + K - 1];
+      if constexpr (K > 0) {
+        float zv[kR + K - 1];
 #pragma unroll
-      for (int i = 0; i < kR + K - 1; ++i) zv[i] = zrow[i * kZs];
+        for (int i = 0; i < kR + K - 1; ++i) zv[i] = zrow[i * kZs];
 #pragma unroll
-      for (int dx = 0; dx < K; ++dx) {
+        for (int dx = 0; dx < K; ++dx) {
 #pragma unroll
-        for (int r = 0; r < kR; ++r) acc[r] += zv[r + dx] * taps[dy * K + dx];
+          for (int r = 0; r < kR; ++r) acc[r] += zv[r + dx] * taps[dy * K + dx];
+        }
+      } else {
+        for (int dx = 0; dx < kk; ++dx) {
+          const float tap =
+              c_ok ? __ldg(wdw + (size_t)(dy * kk + dx) * cmid + c) : 0.0f;
+#pragma unroll
+          for (int r = 0; r < kR; ++r) acc[r] += zrow[(r + dx) * kZs] * tap;
+        }
       }
     }
 #pragma unroll
@@ -614,7 +630,7 @@ int launch(const void* xv, void* outv, int n, int h, int w, int cin,
 
   dim3 grid1(n_tiles, (cmid + kTC - 1) / kTC, n);
   expand_dw_kernel<T, K><<<grid1, kThreads, smem1, st>>>(
-      x, h, w, cin, cmid, wexp, bexp, wdw, bdw, d, partial, rows_per_tile);
+      x, h, w, cin, cmid, k, wexp, bexp, wdw, bdw, d, partial, rows_per_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t smem2 = sizeof(float) * (size_t)(cmid + cse);
@@ -638,16 +654,33 @@ extern "C" int mct_fused_mbconv(
     const void* bproj, void* d, void* partial, void* e, int rows_per_tile,
     void* stream) {
   if (n == 0) return 0;
-  if (rows_per_tile < 1 || (k != 3 && k != 5)) {
+  if (rows_per_tile < 1 || k < 1 || k % 2 == 0) {
     return (int)cudaErrorInvalidValue;
   }
   auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
-  auto run = act_bf16 ? (k == 3 ? &launch<__nv_bfloat16, 3>
-                                : &launch<__nv_bfloat16, 5>)
-                      : (k == 3 ? &launch<float, 3> : &launch<float, 5>);
+  // Taps in registers for EfficientNet's k 3 and 5; any other odd k reads
+  // them through L1.
+  auto run = act_bf16 ? (k == 3   ? &launch<__nv_bfloat16, 3>
+                         : k == 5 ? &launch<__nv_bfloat16, 5>
+                                  : &launch<__nv_bfloat16, 0>)
+                      : (k == 3   ? &launch<float, 3>
+                         : k == 5 ? &launch<float, 5>
+                                  : &launch<float, 0>);
   return run(x, out, n, h, w, cin, cmid, cout, cse, k, residual, f(wexp),
              f(bexp), f(wdw), f(bdw), f(wse1), f(bse1), f(wse2), f(bse2),
              f(wproj), f(bproj), static_cast<float*>(d),
              static_cast<float*>(partial), static_cast<float*>(e),
              rows_per_tile, static_cast<cudaStream_t>(stream));
 }
+
+// Pass 1's dynamic shared memory in bytes for a tile of `rows` output rows,
+// and the budget it must fit; ops/fused_mbconv.py mirrors both to choose
+// the rows, and the card tests hold that copy against these.
+extern "C" int mct_fused_pass1_smem_bytes(int act_bf16, int rows, int w,
+                                          int cin, int k) {
+  return (int)sizeof(float) *
+         (act_bf16 ? pass1_smem_floats<__nv_bfloat16>(rows, w, cin, k)
+                   : pass1_smem_floats<float>(rows, w, cin, k));
+}
+
+extern "C" int mct_fused_pass1_smem_budget() { return kPass1SmemBudget; }

@@ -27,9 +27,11 @@ Port of ``mermaid_classifier_tpu/ops/fused_mbconv.py``:
   tensor cores (``mma.sync``: bf16 operands for bf16 activations, split
   TF32 for f32), so what bounds it is the depthwise taps on the CUDA cores,
   the shared-memory staging and the f32 round trip of the depthwise output
-  through device memory (the source's note counts the bound). For bf16
-  activations the kernel rounds the expand and project weights to bf16
-  once, and the plain version does the same.
+  through device memory (the source's note counts the bound). Each lane
+  holds its depthwise taps in registers for k 3 and 5 and reads them
+  through L1 for any other odd k. For bf16 activations the kernel rounds
+  the expand and project weights to bf16 once, and the plain version does
+  the same.
 
 The TPU kernel's ``dw_layout`` and ``acc_dtype`` options are schedule knobs
 of its VMEM layout; the port carries the f32-accumulator semantics only.
@@ -57,7 +59,8 @@ from mermaid_classifier_tpu_torch.ops.depthwise import depthwise_conv
 launches = 0
 
 # Shared memory one pass-1 block may take: two blocks fit one SM's 227 KB
-# (csrc/fused_mbconv.cu kPass1SmemBudget).
+# (csrc/fused_mbconv.cu kPass1SmemBudget; the card tests hold this copy and
+# ``_pass1_smem_floats`` against the kernel's own).
 _PASS1_SMEM_BUDGET = 110 * 1024
 _KTC, _KZS, _KWARPS = 32, 33, 8  # csrc/fused_mbconv.cu kTC, kZs, kWarps
 
@@ -304,17 +307,21 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def _a_stride(cin: int, bf16: bool) -> int:
+    """csrc/fused_mbconv.cu a_stride: the staged input's row stride, the
+    least >= Cin that is 8 mod 16 (bf16) or 4 mod 8 (f32)."""
+    return _round_up(cin - 8, 16) + 8 if bf16 else _round_up(cin - 4, 8) + 4
+
+
 def _pass1_smem_floats(rows: int, w: int, cin: int, k: int,
                        bf16: bool) -> int:
-    """csrc/fused_mbconv.cu pass1_smem_floats: staged input rows (row
-    stride a_stride), expand weights (K padded to 16, row stride b_stride),
-    the padded expanded map and the partial-sum reduction."""
+    """csrc/fused_mbconv.cu pass1_smem_floats: staged input rows, expand
+    weights (K padded to 16, row stride b_stride), the padded expanded map
+    and the partial-sum reduction."""
     p = (k - 1) // 2
     zrows = rows + 2 * p
-    a_stride = (_round_up(cin - 8, 16) + 8 if bf16
-                else _round_up(cin - 4, 8) + 4)
     b_stride = _KTC + (4 if bf16 else 8)
-    return (zrows * w * a_stride + _round_up(cin, 16) * b_stride
+    return (zrows * w * _a_stride(cin, bf16) + _round_up(cin, 16) * b_stride
             + zrows * (w + 2 * p) * _KZS + _KWARPS * _KTC)
 
 
@@ -355,8 +362,8 @@ def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
         raise ValueError(f"fused_mbconv runs on cpu or cuda, not {x.device}")
 
     cmid, cout, k = meta.mid_channels, meta.out_channels, meta.kernel
-    if k not in (3, 5):
-        raise ValueError(f"the fused kernel takes depthwise k 3 or 5, got {k}")
+    if k < 1 or k % 2 == 0:
+        raise ValueError(f"the fused kernel takes an odd depthwise k, got {k}")
     tensors = _fused_weights(blk)
     for t in tensors:
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():

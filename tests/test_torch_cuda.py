@@ -31,7 +31,9 @@ def cuda():
 
 
 # Geometries beyond B0 at 224 px: odd map sizes (60 px -> 15, 8) and mid
-# widths that are not multiples of the kernel's 32-channel tile (72, 120).
+# widths that are not multiples of the kernel's 32-channel tile (72, 120);
+# depthwise k 7 and 1 (the fused kernel's run-time-k instance) at mid widths
+# that are not multiples of 4 (15, 21; 42).
 CONFIGS = {
     "b0_224": EfficientNetConfig(),
     "b0_60px": EfficientNetConfig(patch_size=60, feature_dim=128),
@@ -39,6 +41,10 @@ CONFIGS = {
         stem_channels=8, stages=((1, 8, 1, 1, 3), (6, 12, 2, 2, 3),
                                  (6, 20, 2, 2, 5)),
         head_channels=32, feature_dim=48, patch_size=36),
+    "odd_k_30px": EfficientNetConfig(
+        stem_channels=8, stages=((1, 5, 1, 1, 3), (3, 7, 2, 1, 7),
+                                 (6, 9, 1, 1, 1)),
+        head_channels=16, feature_dim=16, patch_size=30),
 }
 
 
@@ -112,7 +118,7 @@ def _fused_rels(cuda, name, dtype, patches, only=None):
     return rels
 
 
-# (config, patches, blocks): the three configs at 9 patches; the narrow
+# (config, patches, blocks): the four configs at 9 patches; the narrow
 # config's 9^2 k5 block whose K and N are no multiple of the mma tile (Cin
 # 12, Cmid 72, Cout 20; stride 2 in the config, run at stride 1); 1 and 3
 # patches for the M tails (49 and 196 positions of a 64-position tile at B0
@@ -121,6 +127,7 @@ FUSED_CASES = {
     "b0_224": ("b0_224", 9, None),
     "b0_60px": ("b0_60px", 9, None),
     "narrow_36px": ("narrow_36px", 9, None),
+    "odd_k_30px": ("odd_k_30px", 9, None),
     "narrow_12_72_20": ("narrow_36px", 9, (12, 72, 20)),
     "b0_224_1_patch": ("b0_224", 1, None),
     "b0_224_3_patches": ("b0_224", 3, None),
@@ -128,13 +135,18 @@ FUSED_CASES = {
 }
 
 
+# bf16: the plain version rounds where the kernel does, so the two differ
+# by a bf16 rounding of the expanded map or of m moved by a sum order
+# (3.6e-3 at B0 224), and the limit is 1e-2 rather than the 0.05 of the
+# comparison with the JAX kernel, which rounds elsewhere.
 @pytest.mark.parametrize("case", sorted(FUSED_CASES))
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
-                                         (torch.bfloat16, 0.05)])
+                                         (torch.bfloat16, 1e-2)])
 def test_fused_kernel_matches_plain(cuda, case, dtype, bound):
     name, patches, only = FUSED_CASES[case]
     rels = _fused_rels(cuda, name, dtype, patches, only)
     assert rels
+    print(f"fused {case} {dtype}: max rel {max(r for r, _ in rels):.3e}")
     for rel, meta in rels:
         assert rel <= bound, (meta, rel)
 
@@ -147,22 +159,43 @@ def test_fused_kernel_f32_at_every_b0_224_block(cuda):
     assert max(r for r, _ in rels) <= 1e-5, rels
 
 
-def test_fused_kernel_rejects_other_k(cuda):
-    """The kernel holds its taps in registers for k 3 and 5 (every
-    EfficientNet size); another k on the card raises before any launch."""
+def test_fused_kernel_rejects_even_k(cuda):
+    """SAME taps are symmetric only for an odd k: an even k on the card
+    raises before any launch."""
     config = CONFIGS["narrow_36px"]
     folded = fm.to_device(fm.fold_backbone(
         _perturbed_variables(config, np.random.default_rng(6)), config), cuda)
     blk = next(b for b in folded["blocks"] if fm.fusable(b["meta"]))
-    meta = replace(blk["meta"], kernel=7)
+    meta = replace(blk["meta"], kernel=4)
     x = torch.zeros((1, meta.h, meta.w, meta.in_channels), device=cuda)
     before = fm.launches
-    with pytest.raises(ValueError, match="k 3 or 5"):
+    with pytest.raises(ValueError, match="odd depthwise k"):
         fm.fused_mbconv(x, {**blk, "meta": meta})
     assert fm.launches == before
 
 
-@pytest.mark.parametrize("name", ["b0_60px", "narrow_36px"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pass1_smem_formula_matches_kernel(cuda, dtype):
+    """The wrapper's copy of pass 1's shared-memory formula and budget,
+    which picks the rows per tile, equals the kernel's own, over every
+    fusable block of the configs and a sweep of Cin, k and map widths."""
+    from mermaid_classifier_tpu_torch import _build
+
+    lib = _build.load()
+    bf16 = dtype == torch.bfloat16
+    assert lib.mct_fused_pass1_smem_budget() == fm._PASS1_SMEM_BUDGET
+    geoms = {(m.w, m.in_channels, m.kernel)
+             for config in CONFIGS.values() for m in fm.block_metas(config)
+             if fm.fusable(m)}
+    geoms |= {(w, cin, k) for w in (7, 15, 56) for cin in range(1, 200)
+              for k in (1, 3, 5, 7)}
+    for w, cin, k in sorted(geoms):
+        for rows in (1, 5, 16):
+            assert lib.mct_fused_pass1_smem_bytes(int(bf16), rows, w, cin, k) \
+                == 4 * fm._pass1_smem_floats(rows, w, cin, k, bf16), (w, cin, k)
+
+
+@pytest.mark.parametrize("name", ["b0_60px", "narrow_36px", "odd_k_30px"])
 def test_fused_extractor_matches_cpu_module(cuda, name):
     """The whole f32 serve-path extractor on the card (crop kernel, fused
     kernel, cuDNN blocks) against the f32 nn.Module path on the CPU."""

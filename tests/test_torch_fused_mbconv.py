@@ -194,10 +194,7 @@ class TestFusedBlock:
         (pairs read by 4 rows x 4 lanes) and 4 mod 8 for f32 (singles read
         by 8 rows x 4 lanes)."""
         for cin in range(1, 300):
-            base = tfm._pass1_smem_floats(1, 1, cin, 1, True)
-            a_bf16 = base - (tfm._round_up(cin, 16) * 36 + 33 + 256)
-            base = tfm._pass1_smem_floats(1, 1, cin, 1, False)
-            a_f32 = base - (tfm._round_up(cin, 16) * 40 + 33 + 256)
+            a_bf16, a_f32 = tfm._a_stride(cin, True), tfm._a_stride(cin, False)
             assert a_bf16 >= cin and a_bf16 % 16 == 8 and a_bf16 - cin < 16
             assert a_f32 >= cin and a_f32 % 8 == 4 and a_f32 - cin < 8
 
