@@ -18,7 +18,8 @@ Phases, one output line each:
    does; a sound kernel reads about 3.6e-3).
 4. depthwise — the k x k depthwise kernel against its plain version at 128
    patches, f32 and bf16, on the 8 distinct geometries of B0 224's 12
-   stride-1 depthwise convs and one odd map (15^2 x 72, k5): bitwise equal.
+   stride-1 depthwise convs, one odd map (15^2 x 72, k5) and ``DW_EXTRA``
+   (13^2 maps, 20 channels, a misaligned view, k 7): bitwise equal.
 5. trunk  — full B0 224 extractor (feature_dim 4096, backbone_impl="fused"),
    f32 and bf16, ``verify_device_numerics`` min cosine >= 0.999.
 6. serve  — a 4096->500->300->100->80 sigmoid head artifact, 4 AnnotationRun
@@ -39,7 +40,8 @@ Phases, one output line each:
    fused block also the ``folded`` route's block, cuDNN/cuBLAS with TF32
    off, and its three passes' device time from ``torch.profiler``; per
    depthwise geometry cuDNN's depthwise conv as the ``folded`` schedule runs
-   it), each beside its bound; trunk patch-features/s at
+   it, the kernel's share of its bound, its effective GB/s and the
+   bit-exact ceiling), each beside its bound; trunk patch-features/s at
    batch 128 (bf16 and f32; fused kernel blocks and plain "folded" blocks),
    p50 latency of a 25-point request and its stages.
 
@@ -70,6 +72,12 @@ SEED = 0
 IMAGE_HW = (1536, 2048)
 PATCHES = 128
 DW_ODD = (15, 72, 5)  # (map, channels, k): odd map, channels not a multiple of 32
+# (map, channels, k, misaligned) at 128 patches, reaching the depthwise
+# kernel's other instances and masks: a width that is no multiple of its 8
+# outputs per thread, 20 channels (no multiple of the 8-channel bf16
+# vector), a view not 16-byte aligned (scalar loads) at a B0 geometry, k 7.
+DW_EXTRA = ((13, 24, 3, False), (13, 20, 5, False), (14, 480, 5, True),
+            (13, 40, 7, False))
 
 AB_SCHEDULES = (
     "flax", "folded", "folded+dwp5", "folded+dwp3+dwp5", "folded+taps5",
@@ -125,6 +133,14 @@ def depthwise_bound(h: int, c: int, k: int, n: int, bf16: bool):
     item = 2 if bf16 else 4
     n_bytes = 2 * n * h * h * c * item + 4 * (k * k * c + c)
     return bound(n_bytes, {"f32": 2.0 * n * h * h * c * k * k})
+
+
+def depthwise_ceiling(h: int, c: int, k: int, n: int, bf16: bool) -> float:
+    """Least ms of a depthwise conv that keeps the plain version's bits: a
+    separate multiply and add per tap (no FMA), so the CUDA cores do half
+    the FLOP of their 67 TFLOP/s peak; or the bytes, if they take longer."""
+    _, bytes_ms, ops_ms = depthwise_bound(h, c, k, n, bf16)
+    return max(bytes_ms, 2 * ops_ms)
 
 
 def crop_bound(starts, ps: int, bf16: bool):
@@ -352,20 +368,33 @@ def phase_depthwise(config, results):
         fail(f"expected 8 distinct stride-1 depthwise geometries in 12 B0"
              f" blocks, found {geoms[:-1]}")
     rng = np.random.default_rng(SEED + 6)
-    for h, c, k, _ in geoms:
+    cases = [(h, c, k, False) for h, c, k, _ in geoms] + list(DW_EXTRA)
+    scalar = []
+    for h, c, k, misaligned in cases:
         x, w, b = depthwise_inputs(rng, h, c, k)
         for dtype in (torch.float32, torch.bfloat16):
             xin = x.to(dtype)
+            if misaligned:  # one element into its storage
+                flat = torch.empty(xin.numel() + 1, dtype=dtype, device="cuda")
+                xin = flat[1:].view(xin.shape).copy_(xin)
+            plan = dw.tile_plan(*xin.shape, k, dtype, xin.data_ptr())
+            if not plan.vector_loads:
+                scalar.append(f"{h}^2x{c} k{k} {str(dtype)[6:]}")
             got = dw.depthwise_conv(xin, w, b, kernel=k)
             want = dw.depthwise_conv_reference(xin, w, b, kernel=k)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 fail(f"depthwise kernel differs from plain at {h}^2 x {c} k{k}"
-                     f" {dtype}: max abs"
+                     f" {dtype} (misaligned {misaligned}, {plan}): max abs"
                      f" {float((got.float() - want.float()).abs().max())}")
+    if len(scalar) != 3:
+        fail(f"expected 3 scalar-load cases (20 channels bf16, the misaligned"
+             f" view in f32 and bf16), got {scalar}")
     results["depthwise_conv"] = {"max_abs_err": 0.0}
     say(f"depthwise: kernel == plain bitwise at {PATCHES} patches, f32 and"
-        f" bf16, on " + ", ".join(f"{h}^2x{c} k{k}" for h, c, k, _ in geoms))
+        f" bf16, on " + ", ".join(
+            f"{h}^2x{c} k{k}{' misaligned' if m else ''}" for h, c, k, m in cases)
+        + f"; scalar-load instance on {', '.join(scalar)}")
 
 
 def phase_trunk_ab(variables, config, results):
@@ -649,7 +678,8 @@ def phase_times(config, folded, results, extractor, run25, smi):
     # grouped conv plus bias as the "folded" schedule runs it. The sums
     # weight each geometry by its count among B0 224's 12 stride-1 blocks.
     for dtype in (torch.float32, torch.bfloat16):
-        sums = [0.0] * 6  # kernel, plain, cuDNN, bound, bytes, operations
+        # kernel, plain, cuDNN, bound, bytes, operations, bit-exact ceiling
+        sums = [0.0] * 7
         for h, c, k, blocks in depthwise_geometries(config):
             x, w, b = depthwise_inputs(rng, h, c, k)
             x = x.to(dtype)
@@ -663,19 +693,26 @@ def phase_times(config, folded, results, extractor, run25, smi):
                     cuda_ms(lambda: fm._conv_nhwc(x, w_oihw, 1, (pads, pads), c,
                                                   dtype) + b.to(dtype)),
                 )
-            b = depthwise_bound(h, c, k, PATCHES, dtype == torch.bfloat16)
-            sums = [s + blocks * t for s, t in zip(sums, (*times, *b))]
+            bf16 = dtype == torch.bfloat16
+            b = depthwise_bound(h, c, k, PATCHES, bf16)
+            ceil_ms = depthwise_ceiling(h, c, k, PATCHES, bf16)
+            sums = [s + blocks * t
+                    for s, t in zip(sums, (*times, *b, ceil_ms))]
             say(f"time depthwise {h}^2x{c} k{k} ({blocks} B0 blocks)"
                 f" {str(dtype)[6:]}: kernel {times[0]:.4f} ms, plain"
                 f" {times[1]:.4f} ms, cuDNN {times[2]:.4f} ms, bound"
-                f" {b[0]:.4f} ms ({bound_by(*b[1:])})")
+                f" {b[0]:.4f} ms ({bound_by(*b[1:])}), bit-exact ceiling"
+                f" {ceil_ms:.4f} ms; kernel at {b[0] / times[0]:.1%} of its"
+                f" bound, {b[1] / times[0] * HBM_BYTES_S / 1e9:.1f} GB/s")
         say(f"time depthwise 12 B0 blocks {str(dtype)[6:]}: kernel"
             f" {sums[0]:.4f} ms, plain {sums[1]:.4f} ms, cuDNN {sums[2]:.4f} ms,"
-            f" bound {sums[3]:.4f} ms ({bound_by(*sums[4:])})")
+            f" bound {sums[3]:.4f} ms ({bound_by(*sums[4:6])}), bit-exact"
+            f" ceiling {sums[6]:.4f} ms; kernel at {sums[3] / sums[0]:.1%} of"
+            f" its bound, {sums[4] / sums[0] * HBM_BYTES_S / 1e9:.1f} GB/s")
         if dtype == extractor.dtype:
             results["depthwise_conv"].update(
                 ms=sums[0], plain_ms=sums[1], bound_ms=sums[3],
-                bound_by=bound_by(*sums[4:]), library_ms=sums[2])
+                bound_by=bound_by(*sums[4:6]), library_ms=sums[2])
 
     patches = torch.from_numpy(
         rng.random((PATCHES, ps, ps, 3)).astype(np.float32)).cuda()

@@ -36,7 +36,8 @@ _F = ctypes.c_float
 
 # C signatures of the exported functions (csrc/*.cu), all returning an int:
 # each launcher the cudaError_t of its launches, the two pass-1 queries the
-# fused kernel's shared-memory bytes for a tile and its budget.
+# fused kernel's shared-memory bytes for a tile and its budget, the
+# depthwise query its shared-memory bytes for a band and strip.
 _SIGNATURES = {
     "mct_patch_crop": [
         _P, _I, _P, _I, _I,              # image, wp, starts, n_points, ps
@@ -56,10 +57,13 @@ _SIGNATURES = {
     ],
     "mct_fused_pass1_smem_budget": [],
     "mct_depthwise": [
-        _P, _P, _I,                      # x, out, act_bf16
+        _P, _P, _I, _I,                  # x, out, act_bf16, vec_loads
         _I, _I, _I, _I, _I,              # n, h, w, c, k
         _P, _P,                          # taps (k, k, c), bias (c,)
-        _I, _P,                          # rows per tile, stream
+        _I, _I, _P,                      # band rows, strip rows, stream
+    ],
+    "mct_depthwise_smem_bytes": [
+        _I, _I, _I, _I, _I,              # act_bf16, band, strip, w, k
     ],
 }
 

@@ -240,6 +240,77 @@ def test_depthwise_kernel_equals_plain_bitwise(cuda, name, dtype):
         assert torch.equal(got, want), (h, c, k)
 
 
+# (batch, map, channels, k, misaligned): widths that are not multiples of
+# the kernel's 8 outputs per thread (1, 7, 13, 113), channel counts that
+# are not multiples of its 32-channel group or of the 16-byte vector (5,
+# 20 for bf16, 72) and the widest B0 group (1152), k 1 to 7 (1 and 7 take
+# the run-time-k instance), one and three maps, and views one element into
+# their storage (not 16-byte aligned: the scalar-load instance).
+DEPTHWISE_CASES = {
+    "w1": (3, 1, 24, 3, False),
+    "w7": (3, 7, 24, 5, False),
+    "w13": (3, 13, 24, 3, False),
+    "w113": (3, 113, 24, 3, False),
+    "c5": (3, 13, 5, 3, False),
+    "c20": (3, 13, 20, 5, False),
+    "c72": (3, 13, 72, 3, False),
+    "c1152": (3, 7, 1152, 5, False),
+    "k1": (3, 13, 40, 1, False),
+    "k3": (3, 13, 40, 3, False),
+    "k5": (3, 13, 40, 5, False),
+    "k7": (3, 13, 40, 7, False),
+    "n1": (1, 28, 240, 5, False),
+    "n3": (3, 56, 144, 3, False),
+    "misaligned_k3": (3, 13, 32, 3, True),
+    "misaligned_k5": (2, 14, 480, 5, True),
+    "misaligned_k7": (3, 9, 24, 7, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEPTHWISE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_kernel_cases_bitwise(cuda, case, dtype):
+    """The depthwise kernel equals its plain version bit for bit on the
+    shapes that reach each of its instances and masks."""
+    from mermaid_classifier_tpu_torch.ops import depthwise as dw
+
+    n, h, c, k, misaligned = DEPTHWISE_CASES[case]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((n, h, h, c)).astype(
+        np.float32)).to(cuda, dtype)
+    if misaligned:
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        x = flat[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 != 0
+    w = torch.from_numpy((rng.standard_normal((k, k, c)) * 0.2).astype(
+        np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    vector = not misaligned and c % (8 if dtype == torch.bfloat16 else 4) == 0
+    assert dw.tile_plan(n, h, h, c, k, dtype, x.data_ptr()).vector_loads is vector
+    before = dw.launches
+    got = dw.depthwise_conv(x, w, b, kernel=k)
+    assert dw.launches == before + 1
+    want = dw.depthwise_conv_reference(x, w, b, kernel=k)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_smem_formula_matches_kernel(cuda, dtype):
+    """The wrapper's copy of the depthwise kernel's shared-memory formula,
+    which picks the band and strip, equals the kernel's own over a sweep of
+    widths, k, bands and strips (one strip and a ring of strips)."""
+    from mermaid_classifier_tpu_torch import _build
+    from mermaid_classifier_tpu_torch.ops import depthwise as dw
+
+    lib = _build.load()
+    bf16 = dtype == torch.bfloat16
+    for w in (1, 7, 8, 13, 14, 28, 56, 112, 113, 300):
+        for k in (1, 3, 5, 7):
+            for band, strip in ((1, 1), (15, 3), (15, 15), (37, 8), (49, 64)):
+                assert lib.mct_depthwise_smem_bytes(int(bf16), band, strip, w, k) \
+                    == dw._smem_bytes(band, strip, w, k, 2 if bf16 else 4), (w, k)
+
+
 def test_fused_w8_schedule_launches_and_passes_gate(cuda):
     """``folded+fused+w8`` (int8 triples into the fused kernel's wrapper)
     launches the fused kernel once per fusable block and agrees with

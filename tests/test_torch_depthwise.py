@@ -105,18 +105,104 @@ def test_cpu_tensors_launch_no_kernel_and_empty_batch():
 
 
 def test_rows_per_tile_fits_every_b0_geometry():
-    """Every stride-1 depthwise of B0 at 224 px gets a row tile inside the
-    96 KB budget; the 112^2 x 32 map (262 KB as one 16-row tile) is cut."""
+    """Every stride-1 depthwise of B0 at 224 px, at the trunk's 128 patches
+    in f32 and bf16, gets a plan inside the shared-memory budget; the
+    112^2 x 32 map (a 114-row band would take 456 KB at f32) is cut into
+    bands walked through a ring of strips; a map too wide for the budget
+    (B7's 300^2) takes the hardware limit, and one too wide for that
+    raises."""
     metas = [m for m in tfm.block_metas(EfficientNetConfig()) if m.stride == 1]
     assert len(metas) == 12
     for m in metas:
-        rows = dw.rows_per_tile(m.h, m.w, m.kernel)
-        assert 1 <= rows <= min(m.h, 16)
-        assert 4 * dw._smem_floats(rows, m.w, m.kernel) <= dw._SMEM_BUDGET
-    assert dw.rows_per_tile(112, 112, 3) < 16
-    # A map too wide for the budget (B7's 300^2) takes the hardware limit.
-    assert 4 * dw._smem_floats(1, 300, 3) > dw._SMEM_BUDGET
-    rows = dw.rows_per_tile(300, 300, 3)
-    assert 4 * dw._smem_floats(rows, 300, 3) <= dw._SMEM_MAX
+        for dtype, item in ((torch.float32, 4), (torch.bfloat16, 2)):
+            plan = dw.tile_plan(128, m.h, m.w, m.mid_channels, m.kernel, dtype, 0)
+            assert 1 <= plan.strip and 1 <= plan.band <= 128 * (m.h + m.kernel - 1)
+            assert plan.vector_loads
+            smem = dw._smem_bytes(plan.band, plan.strip, m.w, m.kernel, item)
+            assert smem <= dw._SMEM_BUDGET, (m, dtype, plan)
+    plan = dw.tile_plan(128, 112, 112, 32, 3, torch.float32, 0)
+    assert plan.band < 112 and plan.strip < plan.band
+    for dtype, item in ((torch.float32, 4), (torch.bfloat16, 2)):
+        plan = dw.tile_plan(128, 300, 300, 32, 3, dtype, 0)
+        smem = dw._smem_bytes(plan.band, plan.strip, 300, 3, item)
+        assert smem <= dw._SMEM_MAX
+    assert dw._smem_bytes(1, 1, 300, 3, 4) > dw._SMEM_BUDGET
     with pytest.raises(ValueError, match="does not fit"):
-        dw.rows_per_tile(2000, 2000, 3)
+        dw.tile_plan(1, 2000, 2000, 32, 3, torch.float32, 0)
+
+
+@pytest.mark.parametrize("case,ptr,c,dtype,vector", [
+    ("aligned_f32", 0, 32, torch.float32, True),
+    ("aligned_bf16", 4096, 1152, torch.bfloat16, True),
+    ("c20_f32", 0, 20, torch.float32, True),
+    ("c20_bf16", 0, 20, torch.bfloat16, False),
+    ("odd_c_f32", 0, 5, torch.float32, False),
+    ("odd_c_bf16", 0, 73, torch.bfloat16, False),
+    ("misaligned_4", 4, 32, torch.float32, False),
+    ("misaligned_8", 8, 32, torch.bfloat16, False),
+])
+def test_plan_picks_vector_or_scalar_staging(case, ptr, c, dtype, vector):
+    """16-byte copies only for a 16-byte aligned pointer and C a multiple
+    of the vector width (4 f32, 8 bf16); the scalar instance otherwise."""
+    assert dw.tile_plan(3, 13, 13, c, 3, dtype, ptr).vector_loads is vector
+
+
+def test_plan_sees_a_misaligned_view():
+    """A view one element into its storage is not 16-byte aligned even
+    when its storage is, so the plan takes the scalar instance."""
+    base = torch.zeros(3 * 13 * 13 * 32 + 1)
+    whole = base[:-1].view(3, 13, 13, 32)
+    view = base[1:].view(3, 13, 13, 32)
+    assert whole.data_ptr() % 16 == 0
+    assert dw.tile_plan(3, 13, 13, 32, 3, torch.float32, whole.data_ptr()).vector_loads
+    assert not dw.tile_plan(3, 13, 13, 32, 3, torch.float32, view.data_ptr()).vector_loads
+
+
+def _walk(n, h, k, band, strip):
+    """The kernel's walk of the stack, in Python: for every block, stage
+    its rows into ring slots as the kernel does (the next strip's copies
+    counted as landed before the current strip is read, the worst case)
+    and check that every tap row read holds the row it should. Returns the
+    (map, row) of every output row computed."""
+    p = (k - 1) // 2
+    hv = h + 2 * p
+    rows = n * hv - 2 * p
+    ring = (band if strip >= band else 2 * strip) + k - 1
+    done = []
+    for v0 in range(0, rows, band):
+        vend = min(v0 + band, rows)
+        slots = {}
+
+        def stage(a, b):
+            for v in range(a, b):
+                slots[(v - v0) % ring] = v
+
+        stage(v0, min(v0 + strip, vend) + 2 * p)
+        for vs in range(v0, vend, strip):
+            ve = min(vs + strip, vend)
+            if ve < vend:
+                stage(ve + 2 * p, min(ve + strip, vend) + 2 * p)
+            for v in range(vs, ve):
+                for dy in range(k):
+                    assert slots[(v - v0 + dy) % ring] == v + dy, (v0, v, dy)
+                if v % hv < h:
+                    done.append((v // hv, v % hv))
+    return done
+
+
+@pytest.mark.parametrize("n,h,c,k", [
+    (128, 112, 32, 3), (128, 56, 144, 3), (128, 28, 240, 5), (128, 14, 480, 3),
+    (128, 14, 672, 5), (128, 7, 1152, 5), (128, 7, 1152, 3), (3, 13, 40, 7),
+    (3, 1, 24, 3), (1, 113, 20, 5), (3, 13, 40, 1),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_band_walk_reads_every_tap_row_and_each_output_once(n, h, c, k, dtype):
+    """The stacked-band plan as the kernel walks it: every tap reads the
+    input row it needs from the ring (halo rows loaded once per band), and
+    the bands together compute each output row of each map exactly once."""
+    plan = dw.tile_plan(n, h, h, c, k, dtype, 0)
+    done = _walk(n, h, k, plan.band, plan.strip)
+    assert sorted(done) == [(q, y) for q in range(n) for y in range(h)]
+    # The ring walk itself, with strips shorter than the band.
+    done = _walk(n, h, k, max(plan.band, 3), 1)
+    assert sorted(done) == [(q, y) for q in range(n) for y in range(h)]
