@@ -607,6 +607,7 @@ def phase_times(config, folded, results, extractor, run25, smi):
     from mermaid_classifier_tpu_torch.models.extractor import build_extractor
     from mermaid_classifier_tpu_torch.ops import depthwise as dw
     from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
+    from mermaid_classifier_tpu_torch.ops import patch_crop
     from mermaid_classifier_tpu_torch.ops.patch_crop import extract_patches
     from mermaid_classifier_tpu_torch.ops.patch_ops import (
         channel_scale_bias,
@@ -617,22 +618,40 @@ def phase_times(config, folded, results, extractor, run25, smi):
     rng = np.random.default_rng(SEED + 5)
     ps = config.patch_size
     scale, bias = channel_scale_bias(config.mean_rgb, config.std_rgb)
+    affine = (*map(float, scale), *map(float, bias))
     image = torch.from_numpy(padded_image(rng, config)).cuda()
-    starts = points(rng, PATCHES)
-    starts_dev = torch.from_numpy(starts).cuda()
     scale_dev, bias_dev = torch.from_numpy(scale).cuda(), torch.from_numpy(bias).cuda()
-    for dtype in (torch.float32, torch.bfloat16):
-        k_ms = cuda_ms(lambda: extract_patches(image, starts, ps, scale, bias, dtype))
-        p_ms = cuda_ms(lambda: extract_patches_plain(
-            image, starts_dev, ps, scale_dev, bias_dev, dtype))
-        b_ms, bytes_ms, ops_ms = crop_bound(starts, ps, dtype == torch.bfloat16)
-        say(f"time crop {PATCHES} patches {str(dtype)[6:]}: kernel {k_ms:.4f} ms,"
-            f" plain {p_ms:.4f} ms, bound {b_ms:.4f} ms"
-            f" ({bound_by(bytes_ms, ops_ms)})")
-        if dtype == extractor.dtype:
-            results["patch_crop"].update(
-                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=bound_by(bytes_ms, ops_ms), library_ms=None)
+    # The crop three ways: the whole wrapper (host starts: validation,
+    # allocation, upload and launch) and the launch-only entry (device
+    # starts, preallocated output) by CUDA events, and the kernel's device
+    # time by torch.profiler; at the serve shape (point_bucket, 32) and at
+    # a backbone chunk (128).
+    for n in (extractor.point_bucket, PATCHES):
+        starts = points(rng, n)
+        starts_dev = torch.from_numpy(starts).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            out = torch.empty((n, ps, ps, 3), dtype=dtype, device="cuda")
+
+            def launch():
+                patch_crop.launch(image, starts_dev, out, affine)
+
+            w_ms = cuda_ms(lambda: extract_patches(image, starts, ps, scale,
+                                                   bias, dtype))
+            l_ms = cuda_ms(launch)
+            d_ms = pass_ms(launch, ("crop_kernel",), iters=20).get("crop_kernel")
+            p_ms = cuda_ms(lambda: extract_patches_plain(
+                image, starts_dev, ps, scale_dev, bias_dev, dtype))
+            b_ms, bytes_ms, ops_ms = crop_bound(starts, ps, dtype == torch.bfloat16)
+            say(f"time crop {n} points {str(dtype)[6:]}: wrapper {w_ms:.4f} ms,"
+                f" launch {l_ms:.4f} ms, device "
+                + (f"{d_ms:.4f} ms ({b_ms / d_ms:.1%} of bound)" if d_ms
+                   else "not measured")
+                + f", plain {p_ms:.4f} ms, bound {b_ms:.4f} ms"
+                f" ({bound_by(bytes_ms, ops_ms)})")
+            if n == PATCHES and dtype == extractor.dtype:
+                results["patch_crop"].update(
+                    ms=d_ms or l_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by=bound_by(bytes_ms, ops_ms), library_ms=None)
 
     # Fused blocks: the kernel (and its three passes' device time), its
     # plain version, the "folded" route's block (cuDNN/cuBLAS, TF32 off) and

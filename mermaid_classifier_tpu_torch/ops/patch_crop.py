@@ -55,7 +55,6 @@ def extract_patches(
 
     scale, bias: the (3,) float32 per-channel affine (``channel_scale_bias``).
     """
-    global launches
     if padded_image.dtype != torch.uint8 or padded_image.ndim != 3 or (
         padded_image.shape[2] != 3
     ):
@@ -70,26 +69,39 @@ def extract_patches(
     scale = np.asarray(scale, np.float32).reshape(3)
     bias = np.asarray(bias, np.float32).reshape(3)
     device = padded_image.device
-    if device.type == "cpu":
-        return extract_patches_plain(
-            padded_image, torch.from_numpy(starts), patch_size,
-            torch.from_numpy(scale), torch.from_numpy(bias), out_dtype,
-        )
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"extract_patches runs on cpu or cuda, not {device}")
     n = starts.shape[0]
     out = torch.empty((n, patch_size, patch_size, 3), dtype=out_dtype,
                       device=device)
     if n == 0:
         return out
-    image = padded_image.contiguous()
     starts_dev = torch.from_numpy(starts).to(device)
-    lib = _build.load()
-    err = lib.mct_patch_crop(
-        image.data_ptr(), wp, starts_dev.data_ptr(), n, patch_size,
-        *(float(v) for v in scale), *(float(v) for v in bias),
-        out.data_ptr(), int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(device).cuda_stream,
+    launch(padded_image.contiguous(), starts_dev, out,
+           (*map(float, scale), *map(float, bias)))
+    return out
+
+
+def launch(image: torch.Tensor, starts: torch.Tensor, out: torch.Tensor,
+           affine) -> torch.Tensor:
+    """The crop alone, into ``out``: no validation and no copies.
+
+    image: contiguous (Hp, Wp, 3) uint8; starts: contiguous (P, 2) int32 on
+    the image's device, every crop inside the image; out: (P, ps, ps, 3)
+    float32 or bfloat16 on that device; affine: the six floats
+    (scale[0..2], bias[0..2]). A CUDA image launches the kernel, a CPU image
+    runs the plain version. Returns ``out``.
+    """
+    global launches
+    n, ps = out.shape[0], out.shape[1]
+    if image.device.type == "cpu":
+        scale, bias = (torch.tensor(affine[:3]), torch.tensor(affine[3:]))
+        return out.copy_(extract_patches_plain(image, starts, ps, scale, bias,
+                                               out.dtype))
+    err = _build.load().mct_patch_crop(
+        image.data_ptr(), image.shape[1], starts.data_ptr(), n, ps, *affine,
+        out.data_ptr(), int(out.dtype == torch.bfloat16),
+        torch.cuda.current_stream(image.device).cuda_stream,
     )
     _build.check(err, "patch_crop")
     launches += 1
