@@ -11,7 +11,9 @@ Phases, one output line each:
 
 1. build  — compile every kernel of ``mermaid_classifier_tpu_torch/csrc``.
 2. crop   — the crop kernel against its plain version on the card (1536x2048
-   image, 25 and 128 points with edge points, f32 and bf16): bitwise equal.
+   image, 25, 32 and 128 points with the corners, f32 and bf16): bitwise
+   equal on the raw image at pad ps//2 (the extractor's route) and on the
+   host-padded image at pad 0, and the two routes equal to each other.
 3. fused  — the fused-MBConv kernel against its plain version for each of the
    11 fusable B0 blocks at 224 px, 128 patches: rel <= 1e-5 at f32 (TF32
    off), rel <= 1e-2 at bf16 (the plain version rounds where the kernel
@@ -36,14 +38,18 @@ Phases, one output line each:
    of each timed run equal to ``AB_PER_CHUNK``; then the harness's CLI
    ``main`` once at 256 points with its numerics gate, which must print no
    ``[FAIL]``.
-8. times  — CUDA-event times of each kernel and its plain version (per
-   fused block also the ``folded`` route's block, cuDNN/cuBLAS with TF32
-   off, and its three passes' device time from ``torch.profiler``; per
-   depthwise geometry cuDNN's depthwise conv as the ``folded`` schedule runs
-   it, the kernel's share of its bound, its effective GB/s and the
+8. times  — the crop three ways at 32 and 128 points, on both routes: the
+   whole wrapper and the launch-only entry by CUDA events, and the kernel's
+   device time by ``torch.profiler``, each beside its bound. CUDA-event
+   times of each kernel and its plain version (per fused block also the
+   ``folded`` route's block, cuDNN/cuBLAS with TF32 off, and its three
+   passes' device time from ``torch.profiler``; per depthwise geometry
+   cuDNN's depthwise conv as the ``folded`` schedule runs it, the kernel's
+   share of its bound, its effective GB/s and the
    bit-exact ceiling), each beside its bound; trunk patch-features/s at
    batch 128 (bf16 and f32; fused kernel blocks and plain "folded" blocks),
-   p50 latency of a 25-point request and its stages.
+   p50 latency of a 25-point request and its stages as the extractor runs
+   them (raw upload, crop, trunk, head).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of kernel
 results, and as the last line ``{"ok": true, "device": {...}}``.
@@ -143,15 +149,18 @@ def depthwise_ceiling(h: int, c: int, k: int, n: int, bf16: bool) -> float:
     return max(bytes_ms, 2 * ops_ms)
 
 
-def crop_bound(starts, ps: int, bf16: bool):
+def crop_bound(starts, ps: int, bf16: bool, image_hw, pad: int):
     """Bound of the crop: the distinct image pixels the crops cover (u8 x3)
-    read once, the patches written once, one multiply-add per output."""
+    read once, the patches written once, one multiply-add per output. With
+    ``pad`` > 0 the pixels outside the (h, w) image are zeros that are not
+    read, so only those inside count."""
     import numpy as np
 
-    rows, cols = starts[:, 0], starts[:, 1]
-    covered = np.zeros((int(rows.max()) + ps, int(cols.max()) + ps), bool)
-    for r, c in zip(rows, cols):
+    h, w = image_hw
+    covered = np.zeros((h + 2 * pad, w + 2 * pad), bool)
+    for r, c in starts:
         covered[r:r + ps, c:c + ps] = True
+    covered = covered[pad:pad + h, pad:pad + w]
     out = len(starts) * ps * ps * 3
     n_bytes = 3 * int(covered.sum()) + out * (2 if bf16 else 4)
     return bound(n_bytes, {"f32": 2.0 * out})
@@ -234,8 +243,12 @@ def perturbed_b0_variables(config):
     return variables
 
 
-def padded_image(rng, config):
+def crop_images(rng, config):
+    """A random IMAGE_HW image on the card, raw and host-padded (ps//2 on
+    each side, bottom/right to a multiple of 256, as the extractor padded
+    before the pad was folded into the crop)."""
     import numpy as np
+    import torch
 
     h, w = IMAGE_HW
     half = config.patch_size // 2
@@ -244,7 +257,7 @@ def padded_image(rng, config):
     image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
     out = np.zeros((hp, wp, 3), np.uint8)
     out[half:half + h, half:half + w] = image
-    return out
+    return torch.from_numpy(image).cuda(), torch.from_numpy(out).cuda()
 
 
 def points(rng, n: int):
@@ -278,25 +291,33 @@ def phase_crop(config, results):
 
     rng = np.random.default_rng(SEED)
     scale, bias = channel_scale_bias(config.mean_rgb, config.std_rgb)
-    image = torch.from_numpy(padded_image(rng, config)).cuda()
     ps = config.patch_size
-    worst = 0.0
-    for n in (25, PATCHES):
+    raw, padded = crop_images(rng, config)
+    for n in (25, 32, PATCHES):
         starts = points(rng, n)
         for dtype in (torch.float32, torch.bfloat16):
-            got = extract_patches(image, starts, ps, scale, bias, dtype)
-            want = extract_patches_plain(
-                image, torch.from_numpy(starts).cuda(), ps,
-                torch.from_numpy(scale).cuda(), torch.from_numpy(bias).cuda(),
-                dtype,
-            )
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"crop kernel differs from plain at {n} points {dtype}:"
-                     f" max abs {float((got.float() - want.float()).abs().max())}")
-            worst = max(worst, float((got.float() - want.float()).abs().max()))
-    results["patch_crop"] = {"max_abs_err": worst}
-    say(f"crop: kernel == plain bitwise at 25 and {PATCHES} points, f32 and bf16")
+            routes = []
+            for image, pad in ((raw, ps // 2), (padded, 0)):
+                got = extract_patches(image, starts, ps, scale, bias, dtype,
+                                      pad=pad)
+                want = extract_patches_plain(
+                    image, torch.from_numpy(starts).cuda(), ps,
+                    torch.from_numpy(scale).cuda(),
+                    torch.from_numpy(bias).cuda(), dtype, pad=pad,
+                )
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"crop kernel differs from plain at {n} points {dtype}"
+                         f" pad {pad}: max abs"
+                         f" {float((got.float() - want.float()).abs().max())}")
+                routes.append(got)
+            if not torch.equal(*routes):
+                fail(f"crop of the raw image at pad {ps // 2} differs from the"
+                     f" host-padded crop at {n} points {dtype}")
+    results["patch_crop"] = {"max_abs_err": 0.0}
+    say(f"crop: kernel == plain bitwise at 25, 32 and {PATCHES} points, f32"
+        f" and bf16, raw image at pad {ps // 2} and host-padded at pad 0;"
+        " the two routes equal")
 
 
 def phase_fused(config, folded, results):
@@ -619,39 +640,43 @@ def phase_times(config, folded, results, extractor, run25, smi):
     ps = config.patch_size
     scale, bias = channel_scale_bias(config.mean_rgb, config.std_rgb)
     affine = (*map(float, scale), *map(float, bias))
-    image = torch.from_numpy(padded_image(rng, config)).cuda()
+    raw, padded = crop_images(rng, config)
     scale_dev, bias_dev = torch.from_numpy(scale).cuda(), torch.from_numpy(bias).cuda()
     # The crop three ways: the whole wrapper (host starts: validation,
     # allocation, upload and launch) and the launch-only entry (device
     # starts, preallocated output) by CUDA events, and the kernel's device
     # time by torch.profiler; at the serve shape (point_bucket, 32) and at
-    # a backbone chunk (128).
+    # a backbone chunk (128); on the extractor's route (raw image, pad
+    # ps//2) and on a host-padded image at pad 0.
     for n in (extractor.point_bucket, PATCHES):
         starts = points(rng, n)
         starts_dev = torch.from_numpy(starts).cuda()
-        for dtype in (torch.float32, torch.bfloat16):
-            out = torch.empty((n, ps, ps, 3), dtype=dtype, device="cuda")
+        for image, pad in ((raw, ps // 2), (padded, 0)):
+            route = "raw" if pad else "padded"
+            for dtype in (torch.float32, torch.bfloat16):
+                out = torch.empty((n, ps, ps, 3), dtype=dtype, device="cuda")
 
-            def launch():
-                patch_crop.launch(image, starts_dev, out, affine)
+                def launch():
+                    patch_crop.launch(image, starts_dev, out, affine, pad)
 
-            w_ms = cuda_ms(lambda: extract_patches(image, starts, ps, scale,
-                                                   bias, dtype))
-            l_ms = cuda_ms(launch)
-            d_ms = pass_ms(launch, ("crop_kernel",), iters=20).get("crop_kernel")
-            p_ms = cuda_ms(lambda: extract_patches_plain(
-                image, starts_dev, ps, scale_dev, bias_dev, dtype))
-            b_ms, bytes_ms, ops_ms = crop_bound(starts, ps, dtype == torch.bfloat16)
-            say(f"time crop {n} points {str(dtype)[6:]}: wrapper {w_ms:.4f} ms,"
-                f" launch {l_ms:.4f} ms, device "
-                + (f"{d_ms:.4f} ms ({b_ms / d_ms:.1%} of bound)" if d_ms
-                   else "not measured")
-                + f", plain {p_ms:.4f} ms, bound {b_ms:.4f} ms"
-                f" ({bound_by(bytes_ms, ops_ms)})")
-            if n == PATCHES and dtype == extractor.dtype:
-                results["patch_crop"].update(
-                    ms=d_ms or l_ms, plain_ms=p_ms, bound_ms=b_ms,
-                    bound_by=bound_by(bytes_ms, ops_ms), library_ms=None)
+                w_ms = cuda_ms(lambda: extract_patches(image, starts, ps, scale,
+                                                       bias, dtype, pad=pad))
+                l_ms = cuda_ms(launch)
+                d_ms = pass_ms(launch, ("crop_kernel",), iters=20).get("crop_kernel")
+                p_ms = cuda_ms(lambda: extract_patches_plain(
+                    image, starts_dev, ps, scale_dev, bias_dev, dtype, pad=pad))
+                b_ms, bytes_ms, ops_ms = crop_bound(
+                    starts, ps, dtype == torch.bfloat16, image.shape[:2], pad)
+                say(f"time crop {n} points {route} pad {pad} {str(dtype)[6:]}:"
+                    f" wrapper {w_ms:.4f} ms, launch {l_ms:.4f} ms, device "
+                    + (f"{d_ms:.4f} ms ({b_ms / d_ms:.1%} of bound)" if d_ms
+                       else "not measured")
+                    + f", plain {p_ms:.4f} ms, bound {b_ms:.4f} ms"
+                    f" ({bound_by(bytes_ms, ops_ms)})")
+                if n == PATCHES and pad and dtype == extractor.dtype:
+                    results["patch_crop"].update(
+                        ms=d_ms or l_ms, plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=bound_by(bytes_ms, ops_ms), library_ms=None)
 
     # Fused blocks: the kernel (and its three passes' device time), its
     # plain version, the "folded" route's block (cuDNN/cuBLAS, TF32 off) and
@@ -757,22 +782,18 @@ def phase_times(config, folded, results, extractor, run25, smi):
     say(f"time request 25 points f32 fused: p50 {lat[len(lat) // 2]:.3f} ms,"
         f" min {lat[0]:.3f} ms, max {lat[-1]:.3f} ms over {len(lat)} runs")
 
-    # The same request by stage, synchronizing after each (host clock).
+    # The same request by stage as the extractor runs it, synchronizing
+    # after each (host clock).
     image = run25.load_image()
-    rowcols = run25.points.rowcols()
-    stages = {"pad (host)": [], "upload": [], "crop": [], "trunk": [],
-              "head": []}
+    rowcols = extractor._validate_rowcols(image, run25.points.rowcols())
+    stages = {"upload": [], "crop": [], "trunk": [], "head": []}
 
     def staged():
         marks = [time.perf_counter()]
-        padded = extractor._prepare_image(image)
-        marks.append(time.perf_counter())
-        dev = torch.from_numpy(padded).cuda()
+        dev = extractor._upload(image)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
-        starts = extractor._pad_starts(rowcols, extractor.point_bucket)
-        patches = extract_patches(dev, starts, ps, scale, bias,
-                                  extractor.dtype)[: len(rowcols)]
+        patches = extractor._crop(dev, rowcols)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         feats = extractor.features_for_patches_device(patches)

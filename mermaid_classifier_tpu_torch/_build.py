@@ -40,7 +40,7 @@ _F = ctypes.c_float
 # depthwise query its shared-memory bytes for a band and strip.
 _SIGNATURES = {
     "mct_patch_crop": [
-        _P, _I, _P, _I, _I,              # image, wp, starts, n_points, ps
+        _P, _I, _I, _P, _I, _I, _I,      # image, h, w, starts, n_points, ps, pad
         _F, _F, _F, _F, _F, _F,          # scale[3], bias[3]
         _P, _I, _P,                      # out, out_bf16, stream
     ],

@@ -4,12 +4,12 @@ Port of ``mermaid_classifier_tpu/models/extractor.py``. The weights are held
 on one device, given explicitly (``device="cuda"`` or ``"cpu"``; there is no
 "cuda if available"). Per image:
 
-1. the image is zero-padded host-side by ps//2 on every side and bottom/right
-   up to a multiple of ``image_bucket``, and uploaded once;
+1. the raw image is uploaded once, with no padded copy: the ps//2 zero pad
+   is folded into the crop;
 2. the point list is padded to a multiple of ``point_bucket`` by duplicating
    point 0, and every patch is cropped and normalized on the device by the
-   crop kernel (``ops/patch_crop.py``) in the trunk's compute dtype; the
-   padding points are trimmed;
+   crop kernel (``ops/patch_crop.py``, ``pad = ps // 2``: zeros outside the
+   image) in the trunk's compute dtype; the padding points are trimmed;
 3. the trunk runs over chunks of ``backbone_batch`` patches, a Python loop
    (PyTorch runs eagerly, so the last chunk keeps its own size).
 
@@ -128,7 +128,9 @@ class FeatureExtractor:
 
     def _prepare_image(self, image: np.ndarray) -> np.ndarray:
         """Centered zero pad (ps//2 each side) + bottom/right pad to the
-        size bucket, host-side."""
+        size bucket, host-side: the JAX extractor's padded frame, kept to
+        hold the bucketing to it. No extraction path calls it: the crop
+        folds the pad in and reads the raw image."""
         if image.ndim != 3 or image.shape[2] != 3:
             raise ValueError(f"image must be (H, W, 3), got {image.shape}")
         ps = self.config.patch_size
@@ -168,21 +170,33 @@ class FeatureExtractor:
         starts[n:] = rowcols[0]
         return starts
 
+    def _upload(self, image: np.ndarray) -> torch.Tensor:
+        """The raw (H, W, 3) uint8 image on the device: one host-to-device
+        copy, and a host copy only when the image is not contiguous
+        uint8."""
+        return torch.from_numpy(
+            np.ascontiguousarray(image, dtype=np.uint8)).to(self.device)
+
+    def _crop(self, image: torch.Tensor, rowcols: np.ndarray) -> torch.Tensor:
+        """Raw device image + validated, non-empty (P, 2) points -> the
+        (P, ps, ps, 3) patches, cropped with the ps//2 pad folded in."""
+        ps = self.config.patch_size
+        starts = self._pad_starts(rowcols, self.point_bucket)
+        patches = extract_patches(
+            image, starts, ps, self._scale, self._bias, out_dtype=self.dtype,
+            pad=ps // 2,
+        )
+        return patches[: rowcols.shape[0]]
+
     def extract_patches(self, image: np.ndarray, rowcols) -> torch.Tensor:
         """(H, W, 3) uint8 + (P, 2) points -> (P, ps, ps, 3) normalized
         patches on the device, in the trunk's compute dtype."""
         rowcols = self._validate_rowcols(image, rowcols)
-        n = rowcols.shape[0]
-        ps = self.config.patch_size
-        if n == 0:
+        if rowcols.shape[0] == 0:
+            ps = self.config.patch_size
             return torch.zeros((0, ps, ps, 3), dtype=self.dtype,
                                device=self.device)
-        padded = torch.from_numpy(self._prepare_image(image)).to(self.device)
-        starts = self._pad_starts(rowcols, self.point_bucket)
-        patches = extract_patches(
-            padded, starts, ps, self._scale, self._bias, out_dtype=self.dtype
-        )
-        return patches[:n]
+        return self._crop(self._upload(image), rowcols)
 
     # -- backbone -----------------------------------------------------------
 

@@ -1,10 +1,12 @@
 """Point-patch extraction helpers and the plain crop + normalize.
 
-Port of ``mermaid_classifier_tpu/ops/patch_ops.py``. The image is zero-padded
-by patch_size//2 on every side once, so every crop is in bounds and starts
-at the point's own (row, col) in the padded image; each patch is then
-``x * scale + bias`` per channel, with scale = 1/(255*std) and
-bias = -mean/std (uint8 in, float32 affine, ``out_dtype`` out).
+Port of ``mermaid_classifier_tpu/ops/patch_ops.py``. Crops are taken from
+the image zero-padded by patch_size//2 on every side, so every crop is in
+bounds and starts at the point's own (row, col) in the padded image; the
+crop takes that padding as ``pad`` and reads the raw image, so no padded
+copy is needed. Each patch is then ``x * scale + bias`` per channel, with
+scale = 1/(255*std) and bias = -mean/std (uint8 in, float32 affine,
+``out_dtype`` out).
 
 ``extract_patches_plain`` is the plain PyTorch version of the contract; the
 CUDA kernel that the extractor runs on the card is ``ops/patch_crop.py``.
@@ -47,22 +49,28 @@ def rowcols_to_starts(rowcols, patch_size: int) -> torch.Tensor:
 
 
 def extract_patches_plain(
-    padded_image: torch.Tensor,
+    image: torch.Tensor,
     starts: torch.Tensor,
     patch_size: int,
     scale: torch.Tensor,
     bias: torch.Tensor,
     out_dtype: torch.dtype = torch.float32,
+    pad: int = 0,
 ) -> torch.Tensor:
     """Gather + normalize with advanced indexing.
 
-    padded_image: (Hp, Wp, 3) uint8; starts: (P, 2) int32 on the same
-    device; scale, bias: (3,) float32. Returns (P, ps, ps, 3) in
-    ``out_dtype``; the affine is one f32 multiply then one f32 add.
+    image: (H, W, 3) uint8; starts: (P, 2) int32 on the same device, the
+    top-left corners in the image zero-padded by ``pad`` on each side;
+    scale, bias: (3,) float32. Patch p is
+    ``image[r - pad + i, c - pad + j]`` with zeros outside the image.
+    Returns (P, ps, ps, 3) in ``out_dtype``; the affine is one f32 multiply
+    then one f32 add, also on the zeros.
     """
-    offs = torch.arange(patch_size, device=padded_image.device)
-    starts = starts.to(device=padded_image.device, dtype=torch.long)
+    if pad:
+        image = F.pad(image, (0, 0, pad, pad, pad, pad))
+    offs = torch.arange(patch_size, device=image.device)
+    starts = starts.to(device=image.device, dtype=torch.long)
     rows = starts[:, 0, None] + offs  # (P, ps)
     cols = starts[:, 1, None] + offs
-    patches = padded_image[rows[:, :, None], cols[:, None, :]]  # (P, ps, ps, 3)
+    patches = image[rows[:, :, None], cols[:, None, :]]  # (P, ps, ps, 3)
     return (patches.float() * scale + bias).to(out_dtype)

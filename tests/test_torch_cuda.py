@@ -86,6 +86,92 @@ def test_crop_kernel_equals_plain_bitwise(cuda, out_dtype, ps):
     assert torch.equal(got, want)
 
 
+MEAN_STD = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+
+def _crop_image(cuda, rng, h, w, kind):
+    """A random (h, w, 3) uint8 image on the card: contiguous, or a view at
+    an odd byte offset inside a larger buffer (``odd_offset``)."""
+    image = torch.from_numpy(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    if kind != "odd_offset":
+        return image.to(cuda)
+    flat = torch.from_numpy(rng.integers(0, 256, image.numel() + 64,
+                                         dtype=np.uint8)).to(cuda)
+    view = flat[13:13 + image.numel()].view(h, w, 3).copy_(image.to(cuda))
+    assert view.data_ptr() % 2 == 1
+    return view
+
+
+def _crop_points(rng, h, w, n):
+    """n points of an (h, w) image, its four corners and four edge
+    midpoints first."""
+    edges = [[0, 0], [0, w - 1], [h - 1, 0], [h - 1, w - 1], [h // 2, 0],
+             [h // 2, w - 1], [0, w // 2], [h - 1, w // 2]]
+    pts = np.stack([rng.integers(0, h, n), rng.integers(0, w, n)], 1)
+    pts[:min(n, len(edges))] = edges[:n]
+    return pts.astype(np.int32)
+
+
+# (h, w) per image kind: a full image, the same at an odd byte offset, and
+# an image narrower than every patch size (the crop is mostly zeros).
+CROP_IMAGES = {"full": (300, 460), "odd_offset": (300, 460), "narrow": (90, 6)}
+
+
+@pytest.mark.parametrize("kind", sorted(CROP_IMAGES))
+@pytest.mark.parametrize("pad_mode", ["padded", "raw"])
+@pytest.mark.parametrize("ps", [224, 33, 16, 8])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_crop_kernel_cases_bitwise(cuda, out_dtype, ps, pad_mode, kind):
+    """The crop kernel equals its plain version bit for bit at 1, 32 and
+    128 points with every edge and corner among them: on the host-padded
+    image at pad 0 and on the raw image at pad ps//2, where it also equals
+    the pad-0 crop of the host-padded image."""
+    rng = np.random.default_rng(ps)
+    h, w = CROP_IMAGES[kind]
+    raw = _crop_image(cuda, rng, h, w, kind)
+    padded = patch_ops.pad_image(raw, ps).contiguous()
+    scale, bias = patch_ops.channel_scale_bias(*MEAN_STD)
+    s_dev, b_dev = torch.from_numpy(scale).to(cuda), torch.from_numpy(bias).to(cuda)
+    for n in (1, 32, 128):
+        starts = _crop_points(rng, h, w, n)
+        image, pad = (raw, ps // 2) if pad_mode == "raw" else (padded, 0)
+        before = patch_crop.launches
+        got = patch_crop.extract_patches(image, starts, ps, scale, bias,
+                                         out_dtype, pad=pad)
+        assert patch_crop.launches == before + 1
+        want = patch_ops.extract_patches_plain(
+            image, torch.from_numpy(starts).to(cuda), ps, s_dev, b_dev,
+            out_dtype, pad=pad)
+        assert torch.equal(got, want), (n, float((got.float() - want.float()).abs().max()))
+        if pad:
+            assert torch.equal(got, patch_crop.extract_patches(
+                padded, starts, ps, scale, bias, out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_crop_launch_entry(cuda, out_dtype):
+    """The launch-only entry counts one launch and fills its output as the
+    wrapper does, also into an output that is not 16-byte aligned (the
+    scalar-store instance)."""
+    rng = np.random.default_rng(1)
+    ps = 224
+    raw = _crop_image(cuda, rng, 500, 700, "full")
+    starts = _crop_points(rng, 500, 700, 32)
+    scale, bias = patch_ops.channel_scale_bias(*MEAN_STD)
+    affine = (*map(float, scale), *map(float, bias))
+    want = patch_crop.extract_patches(raw, starts, ps, scale, bias, out_dtype,
+                                      pad=ps // 2)
+    starts_dev = torch.from_numpy(starts).to(cuda)
+    n_out = want.numel()
+    for offset in (0, 1):  # elements into the buffer: aligned, then not
+        flat = torch.empty(n_out + 8, dtype=out_dtype, device=cuda)
+        out = flat[offset:offset + n_out].view(want.shape)
+        before = patch_crop.launches
+        got = patch_crop.launch(raw, starts_dev, out, affine, ps // 2)
+        assert got is out and patch_crop.launches == before + 1
+        assert torch.equal(out, want), offset
+
+
 def _fused_rels(cuda, name, dtype, patches, only=None):
     """Max rel of the fused kernel against its plain version, on
     ``patches`` seeded patches, for each fusable block of the config, or

@@ -75,6 +75,17 @@ class TestAgainstJax:
             port_extractor._pad_starts(pts, 4), jax_extractor._pad_starts(pts, 4)
         )
 
+    @pytest.mark.parametrize("hw", [(61, 130), (40, 20), (33, 1)])
+    def test_features_match_on_raw_shapes(self, jax_extractor, port_extractor,
+                                          hw):
+        """Images off the 64-px buckets, narrower than a patch (20 < 32)
+        and one pixel wide: the raw upload with the pad folded into the crop
+        gives the JAX extractor's features."""
+        image, pts = _image_and_points(8, h=hw[0], w=hw[1], n=5)
+        want = jax_extractor.extract_features(image, pts)
+        got = port_extractor.extract_features(image, pts)
+        assert _rel(got, want) < 1e-4
+
     def test_patches_match_pallas_crop(self, jax_extractor, port_extractor):
         image, pts = _image_and_points(2)
         want = np.asarray(jax_extractor.extract_patches(image, pts))
@@ -88,6 +99,29 @@ class TestExtractor:
         f_all = port_extractor.extract_features(image, pts)  # 5 -> 8
         f_first4 = port_extractor.extract_features(image, pts[:4])  # exact
         np.testing.assert_allclose(f_all[:4], f_first4, rtol=0, atol=1e-5)
+
+    def test_crop_receives_the_raw_image(self, port_extractor, monkeypatch):
+        """The extractor builds no padded copy: the crop is handed the raw
+        (H, W, 3) uint8 image, once, with pad ps//2."""
+        calls = []
+
+        def capture(image, starts, patch_size, *args, **kwargs):
+            calls.append((tuple(image.shape), image.dtype, kwargs.get("pad")))
+            return patch_crop.extract_patches(image, starts, patch_size,
+                                              *args, **kwargs)
+
+        monkeypatch.setattr(text, "extract_patches", capture)
+        image, pts = _image_and_points(9, h=61, w=130, n=5)
+        port_extractor.extract_features(image, pts)
+        assert calls == [((61, 130, 3), torch.uint8, TINY.patch_size // 2)]
+
+    def test_non_uint8_image_is_cast_as_before(self, port_extractor):
+        """An integer image of another dtype is cast to uint8 on upload, as
+        the host-padded copy did."""
+        image, pts = _image_and_points(10, n=3)
+        np.testing.assert_array_equal(
+            port_extractor.extract_features(image.astype(np.int64), pts),
+            port_extractor.extract_features(image, pts))
 
     def test_empty_points(self, port_extractor):
         out = port_extractor.extract_features(
