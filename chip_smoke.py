@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path and its full-trunk A/B harness on one
-CUDA card and check them.
+"""Drive the PyTorch port's serve path, its head-training lane and its
+full-trunk A/B harness on one CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
 ``nvidia-smi``; it imports only the port (``mermaid_classifier_tpu_torch``),
-torch and numpy, and exits non-zero at the first failed phase.
+torch, numpy and (through the port's calibration) scipy, and exits non-zero
+at the first failed phase.
 
 Phases, one output line each:
 
@@ -30,7 +31,29 @@ Phases, one output line each:
    agrees with the f32 nn.Module path on the CPU within 1e-4, and the
    kernels' launch counts equal one crop per request and 11 fused blocks per
    128-patch chunk.
-7. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
+7. train  — the head-training lane at production width, 4096 -> (500, 300,
+   100) -> 80, ``learning_rate_init`` 1e-4, ``random_state`` 0, auto
+   mini-batch 200: seeded features (80 class means plus noise), 40,000
+   training rows streamed as 4 ``partial_fit`` chunks of 10,000 per epoch
+   for 3 epochs, and 8,000 reference rows. The loss is finite and falls
+   epoch over epoch, reference accuracy is >= 0.9; the first chunk, trained
+   on the card and on the CPU from the same weights, agrees (loss rel 1e-4,
+   each weight matrix 2e-3 relative Frobenius norm, reference
+   probabilities 2e-3 max abs: Adam's normalised steps carry rounding
+   differences in small gradients into the weights; for scale the phase
+   prints each device against itself, the chunk trained again and with
+   the network's units permuted, the same sums in other orders); the
+   device calibration solve agrees with
+   the scipy fits (rtol 2e-3, atol 2e-4); the temperature fit runs;
+   ``export_artifact`` passes its 1e-6 gate with the torch pin enforced;
+   ``load_predictor(..., device="cuda")`` serves the artifact in one
+   25-point ``AnnotationRun`` (rows sum to 1 within 1e-6, one crop launch
+   and 11 fused launches). Times: ms per Adam step and rows/s of each
+   ``partial_fit`` call (CUDA events, one readback per call) beside the
+   step's bound, the chunk's upload, the device's busy share and kernels
+   per step during one call (``torch.profiler``), the device and scipy
+   calibration solves and the export gate (host clock).
+8. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
    224, 128-patch chunks, on every schedule of ``AB_SCHEDULES``: in bf16 and
    f32 each schedule's ``gate_cosine`` against ``folded`` is >= 0.999;
    ``time_trunk`` patch-features/s of every schedule in bf16 and of
@@ -38,7 +61,7 @@ Phases, one output line each:
    of each timed run equal to ``AB_PER_CHUNK``; then the harness's CLI
    ``main`` once at 256 points with its numerics gate, which must print no
    ``[FAIL]``.
-8. times  — the crop three ways at 32 and 128 points, on both routes: the
+9. times  — the crop three ways at 32 and 128 points, on both routes: the
    whole wrapper and the launch-only entry by CUDA events, and the kernel's
    device time by ``torch.profiler``, each beside its bound. CUDA-event
    times of each kernel and its plain version (per fused block also the
@@ -416,6 +439,284 @@ def phase_depthwise(config, results):
         f" bf16, on " + ", ".join(
             f"{h}^2x{c} k{k}{' misaligned' if m else ''}" for h, c, k, m in cases)
         + f"; scalar-load instance on {', '.join(scalar)}")
+
+
+TRAIN_HIDDEN, TRAIN_CLASSES, TRAIN_LR = (500, 300, 100), 80, 1e-4
+TRAIN_ROWS, TRAIN_CHUNK, TRAIN_EPOCHS, TRAIN_REF_ROWS = 40_000, 10_000, 3, 8_000
+TRAIN_MEAN_STD = 0.3  # class means ~ N(0, 0.3^2) per feature, noise N(0, 1)
+
+
+def train_step_bound(dims, rows: int):
+    """Bound of one Adam step of the MLP over ``rows`` rows: forward and
+    backward products (the first layer's input gradient is not needed) in
+    f32 on the CUDA cores; the bytes are the parameters and both Adam
+    moments read and written once, and the batch's rows and labels read."""
+    pairs = list(zip(dims[:-1], dims[1:]))
+    n_params = sum(a * b + b for a, b in pairs)
+    flops = 2.0 * rows * (2 * sum(a * b for a, b in pairs)
+                          + sum(a * b for a, b in pairs[1:]))
+    n_bytes = 6 * 4 * n_params + rows * (4 * dims[0] + 8)
+    return (*bound(n_bytes, {"f32": flops}), flops, n_bytes)
+
+
+def device_busy(fn):
+    """(device ms, device operations, {name: ms} of the three longest by
+    total) during one call of ``fn``: kernels and copies on the card, by
+    torch.profiler; (None, None, {}) if it saw none."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = Counter()
+    spans = 0
+    for e in prof.events():
+        # A user annotation (the optimizer's step) spans kernels counted
+        # on their own.
+        if (getattr(e, "device_type", None) == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("Optimizer.")):
+            by_name[e.name[:48]] += e.time_range.elapsed_us() / 1e3
+            spans += 1
+    if not spans:
+        return None, None, {}
+    return sum(by_name.values()), spans, dict(by_name.most_common(3))
+
+
+def train_summary(clf, X_ref):
+    """(last loss, weight matrices, X_ref probabilities) of a classifier."""
+    return clf.loss_curve_[-1], clf.coefs_, clf.predict_proba(X_ref)
+
+
+def train_gap(a, b):
+    """(loss rel, max relative Frobenius norm of a weight matrix's
+    difference, max |dp|) between two train_summary results."""
+    import numpy as np
+
+    return (abs(a[0] / b[0] - 1.0),
+            max(np.linalg.norm(u - v) / np.linalg.norm(v) for u, v in zip(a[1], b[1])),
+            float(np.abs(a[2] - b[2]).max()))
+
+
+def twin_run(init, names, kw, X, y, X_ref, device, permute):
+    """train_summary of the chunk trained again on ``device`` from the same
+    weights; with ``permute``, by the same network with its input features
+    and hidden units in a seeded other order (the same arithmetic, summed
+    in other orders), mapped back to the original order."""
+    import numpy as np
+
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import (
+        classifier_from_arrays,
+    )
+
+    rng = np.random.default_rng(SEED + 8)
+    perms = [rng.permutation(w.shape[0]) if permute else np.arange(w.shape[0])
+             for w in init.coefs_]
+    perms.append(np.arange(init.coefs_[-1].shape[1]))
+    twin = classifier_from_arrays(
+        [w[perms[i]][:, perms[i + 1]] for i, w in enumerate(init.coefs_)],
+        [v[perms[i + 1]] for i, v in enumerate(init.intercepts_)],
+        classes=names, device=device, **kw)
+    twin.partial_fit(np.ascontiguousarray(X[:, perms[0]]), y)
+    inv = [np.argsort(p) for p in perms]
+    return (twin.loss_curve_[-1],
+            [w[inv[i]][:, inv[i + 1]] for i, w in enumerate(twin.coefs_)],
+            twin.predict_proba(np.ascontiguousarray(X_ref[:, perms[0]])))
+
+
+def train_features(rng, means, n: int):
+    """n seeded rows: a class mean plus unit noise, in place."""
+    import numpy as np
+
+    y = rng.integers(0, len(means), n)
+    X = rng.standard_normal((n, means.shape[1]), dtype=np.float32)
+    for s in range(0, n, TRAIN_CHUNK):
+        X[s:s + TRAIN_CHUNK] += means[y[s:s + TRAIN_CHUNK]]
+    return X, y
+
+
+def phase_train(extractor, tmp: Path, smi: str):
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.inference import (
+        export_artifact,
+        load_predictor,
+    )
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from mermaid_classifier_tpu_torch.train.calibration import (
+        CalibratedClassifier,
+        TemperatureCalibratedClassifier,
+    )
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import (
+        MLPClassifier,
+        classifier_from_arrays,
+    )
+
+    dim = extractor.config.feature_dim
+    rng = np.random.default_rng(SEED + 7)
+    means = (rng.standard_normal((TRAIN_CLASSES, dim))
+             * TRAIN_MEAN_STD).astype(np.float32)
+    names = np.asarray([f"ba-{i:02d}::gf-{i % 7}" for i in range(TRAIN_CLASSES)])
+    X, y_idx = train_features(rng, means, TRAIN_ROWS)
+    X_ref, ref_idx = train_features(rng, means, TRAIN_REF_ROWS)
+    y, y_ref = names[y_idx], names[ref_idx]
+
+    # The port's own seeded init (drawn on the host), carried to each device.
+    kw = dict(learning_rate_init=TRAIN_LR, random_state=0)
+    init = MLPClassifier(TRAIN_HIDDEN, device="cpu", **kw)
+    init.classes_, init.n_features_in_ = np.unique(names), dim
+    init._init_params()
+    clf = classifier_from_arrays(init.coefs_, init.intercepts_, classes=names,
+                                 device="cuda", **kw)
+    cpu = classifier_from_arrays(init.coefs_, init.intercepts_, classes=names,
+                                 device="cpu", **kw)
+
+    dims = (dim, *TRAIN_HIDDEN, TRAIN_CLASSES)
+    b_ms, bytes_ms, ops_ms, flops, n_bytes = train_step_bound(dims, 200)
+    steps = -(-TRAIN_CHUNK // 200)
+    call_ms = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for epoch in range(TRAIN_EPOCHS):
+        for s in range(0, TRAIN_ROWS, TRAIN_CHUNK):
+            start.record()
+            clf.partial_fit(X[s:s + TRAIN_CHUNK], y[s:s + TRAIN_CHUNK])
+            end.record()
+            end.synchronize()
+            call_ms.append(start.elapsed_time(end))
+            if epoch == 0 and s == 0:
+                t0 = time.perf_counter()
+                cpu.partial_fit(X[:TRAIN_CHUNK], y[:TRAIN_CHUNK])
+                cpu_s = time.perf_counter() - t0
+                base = train_summary(cpu, X_ref)
+                loss_rel, w_rel, p_diff = train_gap(train_summary(clf, X_ref), base)
+                ref = {"cpu": base, "cuda": train_summary(clf, X_ref)}
+                twin_gaps = {
+                    f"{dev}{' permuted' if permute else ' again'}": train_gap(
+                        twin_run(init, names, kw, X[:TRAIN_CHUNK], y[:TRAIN_CHUNK],
+                                 X_ref, dev, permute), ref[dev])
+                    for dev, permute in (("cuda", False), ("cpu", True),
+                                         ("cuda", True))}
+                if not (loss_rel <= 1e-4 and w_rel <= 2e-3 and p_diff <= 2e-3):
+                    fail(f"train: first chunk cuda vs cpu: loss rel {loss_rel:.3e}"
+                         f" (<= 1e-4), weight rel Frobenius {w_rel:.3e}, ref proba"
+                         f" max |dp| {p_diff:.3e} (each <= 2e-3)")
+                say(f"train: first chunk cuda vs cpu from the same weights: loss"
+                    f" rel {loss_rel:.3e} (<= 1e-4), max weight rel Frobenius"
+                    f" {w_rel:.3e}, ref proba max |dp| {p_diff:.3e} (each <="
+                    f" 2e-3); each device against itself, trained again and"
+                    f" with every layer's units permuted (the same sums in"
+                    f" other orders): "
+                    + "; ".join(f"{name} " + ", ".join(f"{v:.3e}" for v in gap)
+                                for name, gap in twin_gaps.items())
+                    + f"; the cpu chunk took {cpu_s:.1f} s")
+
+    curve = np.asarray(clf.loss_curve_).reshape(TRAIN_EPOCHS, -1)
+    epoch_loss = curve.mean(axis=1)
+    if not np.isfinite(curve).all() or not np.all(np.diff(epoch_loss) < 0):
+        fail(f"train: loss per epoch {epoch_loss.tolist()} is not finite and falling")
+    proba_ref = clf.predict_proba(X_ref)
+    acc = float(np.mean(clf.classes_[proba_ref.argmax(axis=1)] == y_ref))
+    if not acc >= 0.9:
+        fail(f"train: reference accuracy {acc:.4f} < 0.9")
+    say(f"train: {dims} lr {TRAIN_LR}, {TRAIN_EPOCHS} epochs x"
+        f" {TRAIN_ROWS // TRAIN_CHUNK} chunks of {TRAIN_CHUNK} rows, mean loss"
+        f" per epoch {[round(float(v), 5) for v in epoch_loss]}, reference"
+        f" accuracy {acc:.4f} over {TRAIN_REF_ROWS} rows")
+
+    upload = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    chunk = X[:TRAIN_CHUNK]
+    up_ms = []
+    for _ in range(4):
+        upload[0].record()
+        torch.from_numpy(chunk).to("cuda")
+        upload[1].record()
+        upload[1].synchronize()
+        up_ms.append(upload[0].elapsed_time(upload[1]))
+    busy_ms, n_ops, top = device_busy(
+        lambda: clf.partial_fit(chunk, y[:TRAIN_CHUNK]))
+    steady = sorted(call_ms[1:])
+    med = steady[len(steady) // 2]
+    say(f"time train on: {smi}")
+    say(f"time train partial_fit ({TRAIN_CHUNK} rows, {steps} Adam steps of 200):"
+        f" first call {call_ms[0]:.3f} ms, median of the other"
+        f" {len(steady)} {med:.3f} ms (min {steady[0]:.3f}, max {steady[-1]:.3f}),"
+        f" {TRAIN_CHUNK / med * 1e3:.1f} rows/s; per Adam step"
+        f" {med / steps:.4f} ms against a bound of {b_ms:.4f} ms"
+        f" ({bound_by(bytes_ms, ops_ms)}: {flops / 1e9:.3f} GFLOP f32,"
+        f" {n_bytes / 1e6:.1f} MB), {b_ms / (med / steps):.1%} of it; the"
+        f" chunk's upload alone {sorted(up_ms)[1]:.3f} ms (CUDA events)")
+    if busy_ms is not None:
+        say(f"time train one partial_fit (torch.profiler): device busy"
+            f" {busy_ms:.3f} ms over {n_ops} kernels and copies,"
+            f" {n_ops / steps:.1f} per step, {busy_ms / steps:.4f} ms per step;"
+            f" longest by total: " + ", ".join(f"{k} {v:.3f} ms" for k, v in top.items()))
+    else:
+        say("time train one partial_fit (torch.profiler): device time not measured")
+
+    # Calibration on the reference set: the batched device solve and the
+    # scipy fits, which must agree; then the temperature fit.
+    cal_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model = CalibratedClassifier.fit_from_scores(
+            clf, proba_ref, y_ref, backend="device", device="cuda")
+        cal_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    scipy = CalibratedClassifier.fit_from_scores(clf, proba_ref, y_ref)
+    scipy_ms = (time.perf_counter() - t0) * 1e3
+    for attr in ("calibration_a_", "calibration_b_"):
+        got, want = getattr(model, attr), getattr(scipy, attr)
+        if not np.all(np.abs(got - want) <= 2e-4 + 2e-3 * np.abs(want)):
+            fail(f"train: device calibration {attr} differs from scipy by"
+                 f" {np.abs(got - want).max():.3e} (rtol 2e-3, atol 2e-4)")
+    a_rel = float(np.max(np.abs(model.calibration_a_ - scipy.calibration_a_)
+                         / np.abs(scipy.calibration_a_)))
+    t0 = time.perf_counter()
+    temp = TemperatureCalibratedClassifier.fit_from_scores(clf, proba_ref, y_ref)
+    temp_ms = (time.perf_counter() - t0) * 1e3
+    if not np.isfinite(temp.temperature_):
+        fail(f"train: temperature {temp.temperature_}")
+    say(f"train: calibration on {TRAIN_REF_ROWS} x {TRAIN_CLASSES}: device solve"
+        f" agrees with scipy (max a rel {a_rel:.3e}; rtol 2e-3, atol 2e-4);"
+        f" temperature {temp.temperature_:.6f}")
+    say(f"time train calibration {TRAIN_REF_ROWS} x {TRAIN_CLASSES} (host clock):"
+        f" device solve {sorted(cal_ms)[1]:.3f} ms (median of 3, first"
+        f" {cal_ms[0]:.3f}), scipy {scipy_ms:.1f} ms, temperature {temp_ms:.1f} ms")
+
+    art = tmp / "trained"
+    t0 = time.perf_counter()
+    _, manifest, diff = export_artifact(model, art, X_ref[:2048])
+    gate_ms = (time.perf_counter() - t0) * 1e3
+    if not diff <= 1e-6:
+        fail(f"train: export gate max |dp| {diff}")
+    say(f"train: export_artifact gate max |dp| {diff:.3e} (<= 1e-6) on 2048 rows,"
+        f" torch pin enforced ({manifest['trained_with']['torch']})")
+    say(f"time train export gate (host clock, 2048 rows, files written):"
+        f" {gate_ms:.3f} ms")
+
+    predictor = load_predictor(art, device="cuda")
+    h, w = IMAGE_HW
+    image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    csv_path = tmp / "points_trained.csv"
+    write_points(csv_path, points(rng, 25))
+    run = AnnotationRun(image, csv_path, predictor, extractor=extractor)
+    patch_crop.launches = fused_mbconv.launches = 0
+    run.run()
+    launches = (patch_crop.launches, fused_mbconv.launches)
+    torch.cuda.synchronize()
+    check_run(run, 25, list(names), run.top_n)
+    if launches != (1, 11):
+        fail(f"train: serving the trained artifact launched (crop, fused)"
+             f" {launches}, want (1, 11)")
+    say(f"train: the exported artifact serves a 25-point AnnotationRun on the"
+        f" card, rows sum to 1, launches crop={launches[0]} fused={launches[1]}")
 
 
 def phase_trunk_ab(variables, config, results):
@@ -833,6 +1134,7 @@ def main() -> None:
     phase_trunk(variables, config)
     with tempfile.TemporaryDirectory() as tmp:
         extractor, run25 = phase_serve(variables, config, results, Path(tmp))
+        phase_train(extractor, Path(tmp), smi)
         phase_trunk_ab(variables, config, results)
         phase_times(config, folded, results, extractor, run25, smi)
 

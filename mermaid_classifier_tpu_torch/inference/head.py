@@ -125,6 +125,17 @@ class HeadParams:
         return tree
 
 
+def mlp_logits(weights, biases, x: torch.Tensor) -> torch.Tensor:
+    """Linear -> ReLU -> ... -> Linear, raw logits. The training classifier
+    runs this same function, so the export gate compares identical ops."""
+    n = len(weights)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        x = torch.matmul(x, w) + b
+        if i < n - 1:
+            x = torch.relu(x)
+    return x
+
+
 def head_apply(params: dict, features: torch.Tensor) -> torch.Tensor:
     """Calibrated-head forward: (N, D) float32 -> (N, K) float32."""
     if features.is_cuda and torch.backends.cuda.matmul.allow_tf32:
@@ -132,13 +143,8 @@ def head_apply(params: dict, features: torch.Tensor) -> torch.Tensor:
             "torch.backends.cuda.matmul.allow_tf32 is True: the head needs"
             " full float32 matmuls"
         )
-    x = features
-    n = len(params["weights"])
-    for i, (w, b) in enumerate(zip(params["weights"], params["biases"])):
-        x = torch.matmul(x, w) + b
-        if i < n - 1:
-            x = torch.relu(x)
-    p = torch.softmax(x, dim=1)
+    p = torch.softmax(
+        mlp_logits(params["weights"], params["biases"], features), dim=1)
     if "inv_t" in params:
         # p^(1/T) renormalized through the log-probabilities (not
         # softmax(logits / T), which amplifies the rounding of 1/T by the

@@ -414,3 +414,81 @@ def test_fused_w8_schedule_launches_and_passes_gate(cuda):
                          chunk=16)
     assert fm.launches - before == sum(map(fm.fusable, fm.block_metas(config)))
     assert cos >= 0.999, cos
+
+
+# --- the head-training lane on the card ------------------------------------
+
+
+def _train_data(n, d, k, seed):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, size=n)
+    means = rng.normal(0.0, 0.3, size=(k, d)).astype(np.float32)
+    X = rng.standard_normal((n, d), dtype=np.float32) + means[y]
+    return X, np.array([f"c{i:02d}" for i in range(k)])[y]
+
+
+def test_training_on_cuda_matches_cpu(cuda):
+    """One partial_fit from the same weights on each device (d 1024, hidden
+    (256, 64), 20 classes, 2,000 rows): loss within rel 1e-4, each weight
+    matrix within 1e-4 relative Frobenius norm, probabilities within 1e-4."""
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import (
+        MLPClassifier,
+        classifier_from_arrays,
+    )
+
+    X, y = _train_data(2000, 1024, 20, seed=0)
+    kw = dict(random_state=0, learning_rate_init=1e-4)
+    init = MLPClassifier((256, 64), device="cpu", **kw)
+    init.classes_, init.n_features_in_ = np.unique(y), X.shape[1]
+    init._init_params()
+    clfs = [classifier_from_arrays(init.coefs_, init.intercepts_,
+                                   classes=np.unique(y), device=dev, **kw)
+            for dev in ("cpu", cuda)]
+    for clf in clfs:
+        clf.partial_fit(X, y)
+    cpu, gpu = clfs
+    assert gpu.loss_curve_[0] == pytest.approx(cpu.loss_curve_[0], rel=1e-4)
+    for got, want in zip(gpu.coefs_, cpu.coefs_):
+        assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+    assert np.abs(gpu.predict_proba(X[:500]) - cpu.predict_proba(X[:500])).max() <= 1e-4
+
+
+def test_device_calibration_matches_scipy_on_cuda(cuda):
+    """The batched Newton solve on the card against the scipy fits: rtol
+    2e-3, atol 2e-4 (the JAX test's bounds)."""
+    from mermaid_classifier_tpu_torch.train.calibration import (
+        fit_sigmoid_calibration,
+        fit_sigmoid_calibration_batch,
+    )
+
+    rng = np.random.default_rng(10)
+    n, k = 4000, 12
+    raw = rng.random((n, k))
+    proba = raw / raw.sum(axis=1, keepdims=True)
+    y = np.argmax(proba + rng.normal(0, 0.2, (n, k)), axis=1)
+    targets = (y[:, None] == np.arange(k)).astype(np.float64)
+    a, b = fit_sigmoid_calibration_batch(proba, targets, device=cuda)
+    for col in range(k):
+        a_ref, b_ref = fit_sigmoid_calibration(proba[:, col], targets[:, col])
+        assert a[col] == pytest.approx(a_ref, rel=2e-3, abs=2e-4)
+        assert b[col] == pytest.approx(b_ref, rel=2e-3, abs=2e-4)
+
+
+def test_export_gate_on_cuda(cuda, tmp_path):
+    """A head trained on the card passes the 1e-6 gate with the torch pin
+    enforced, and the artifact serves on the card."""
+    from mermaid_classifier_tpu_torch.inference import export_artifact, load_predictor
+    from mermaid_classifier_tpu_torch.train.calibration import CalibratedClassifier
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+
+    X, y = _train_data(2000, 256, 10, seed=1)
+    clf = MLPClassifier((64, 32), random_state=0, learning_rate_init=1e-3,
+                        device=cuda)
+    for _ in range(3):
+        clf.partial_fit(X, y, classes=np.unique(y))
+    model = CalibratedClassifier.fit_from_scores(
+        clf, clf.predict_proba(X[:1000]), y[:1000], backend="device", device=cuda)
+    _, _, diff = export_artifact(model, tmp_path, X[1000:])
+    assert diff <= 1e-6
+    pred = load_predictor(tmp_path, device=cuda)
+    assert np.abs(pred.predict_proba(X[1000:]) - model.predict_proba(X[1000:])).max() <= 1e-6
