@@ -492,3 +492,204 @@ def test_export_gate_on_cuda(cuda, tmp_path):
     assert diff <= 1e-6
     pred = load_predictor(tmp_path, device=cuda)
     assert np.abs(pred.predict_proba(X[1000:]) - model.predict_proba(X[1000:])).max() <= 1e-6
+
+
+# --- the fixed-shape Adam step, captured as a CUDA graph ---------------------
+
+
+def _same_weights(a, b) -> bool:
+    return all(np.array_equal(u, v) for u, v in
+               zip(a.coefs_ + a.intercepts_, b.coefs_ + b.intercepts_))
+
+
+def _resident_clf(cuda, X, dtype="float32", **kw):
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+
+    clf = MLPClassifier((256, 64), random_state=0, learning_rate_init=1e-3,
+                        device=cuda, **kw)
+    return clf.set_resident_features(X, dtype=dtype)
+
+
+def test_captured_step_equals_eager_step(cuda):
+    """Two calls (3,000 rows, a padded tail), the step captured against the
+    same step run eagerly on the card from the same state: weights, biases
+    and losses bitwise equal."""
+    X, y = _train_data(3000, 1024, 20, seed=2)
+    captured = _resident_clf(cuda, X)
+    eager = _resident_clf(cuda, X)
+    eager.capture_step = False
+    for clf in (captured, eager):
+        for _ in range(2):
+            clf.partial_fit_resident(np.arange(3000), y, classes=np.unique(y))
+    assert captured._runners and all(r.graph is not None
+                                     for r in captured._runners.values())
+    assert all(r.graph is None for r in eager._runners.values())
+    assert captured.loss_curve_ == eager.loss_curve_
+    assert _same_weights(captured, eager)
+
+
+@pytest.mark.parametrize("class_weight", [None, "ramp"])
+def test_resident_equals_streamed_on_cuda(cuda, class_weight):
+    """partial_fit_resident and partial_fit on the gathered rows, both
+    captured, bitwise equal on the card (n 2,130: a tail of 130)."""
+    X, y = _train_data(2130, 1024, 20, seed=3)
+    weights = (None if class_weight is None else
+               {c: 1.0 + 0.1 * i for i, c in enumerate(np.unique(y))})
+    resident = _resident_clf(cuda, X, class_weight=weights)
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+
+    streamed = MLPClassifier((256, 64), random_state=0, learning_rate_init=1e-3,
+                             class_weight=weights, device=cuda)
+    order = np.random.default_rng(0).permutation(2130)
+    for start in (0, 1000, 2000):
+        idx = order[start:start + 1000]
+        resident.partial_fit_resident(idx, y[idx], classes=np.unique(y))
+        streamed.partial_fit(X[idx], y[idx], classes=np.unique(y))
+    assert resident.loss_curve_ == streamed.loss_curve_
+    assert _same_weights(resident, streamed)
+
+
+def test_graph_recaptured_after_set_state_and_snapshot_restore(cuda):
+    """New parameter tensors (``_set_state``, a restored deepcopy snapshot)
+    drop the old graphs; the next call captures anew and trains exactly as a
+    twin built from the same state."""
+    import copy
+
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import (
+        classifier_from_arrays,
+    )
+
+    X, y = _train_data(2000, 512, 10, seed=4)
+    clf = _resident_clf(cuda, X)
+    idx = np.arange(2000)
+    clf.partial_fit_resident(idx, y, classes=np.unique(y))
+    old = list(clf._runners.values())
+    snapshot = copy.deepcopy(clf)
+    assert not getattr(snapshot, "_runners", None)
+    assert snapshot._resident_X is clf._resident_X
+    clf.partial_fit_resident(idx, y)  # moves clf on; the snapshot stays
+
+    state = (clf.coefs_, clf.intercepts_, {
+        "count": clf._adam_state()["count"],
+        **{k: {p: [t.cpu().numpy() for t in v[p]] for p in ("W", "b")}
+           for k, v in clf._adam_state().items() if k != "count"}})
+    clf._set_state(*state)
+    assert clf._runners == {}
+    twin = classifier_from_arrays(state[0], state[1], classes=np.unique(y),
+                                  adam=state[2], device=cuda, random_state=0,
+                                  learning_rate_init=1e-3)
+    twin._resident_X, twin._resident_scale = clf._resident_X, None
+    twin._resident_n_rows, twin._resident_dtype = 2000, "float32"
+    twin.capture_step = False
+    clf.partial_fit_resident(idx, y)
+    twin.partial_fit_resident(idx, y)
+    assert all(r not in old for r in clf._runners.values())
+    assert _same_weights(clf, twin)
+
+    restored = copy.deepcopy(snapshot)
+    restored.capture_step = False
+    snapshot.partial_fit_resident(idx, y)  # captures its own graph
+    restored.partial_fit_resident(idx, y)
+    assert _same_weights(snapshot, restored)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_reduced_storage_against_f32_on_cuda(cuda, dtype):
+    """The repo's reduced-precision gate on the card: the same trained
+    params over the stored rows against the f32 rows, min row cosine >=
+    0.999; the model trained on stored rows against the f32-trained one,
+    min row cosine >= 0.999 on these separable data."""
+    X, y = _train_data(4000, 1024, 20, seed=5)
+    f32, low = _resident_clf(cuda, X), _resident_clf(cuda, X, dtype=dtype)
+    for clf in (f32, low):
+        for _ in range(3):
+            clf.partial_fit_resident(np.arange(4000), y, classes=np.unique(y))
+
+    def min_cosine(a, b):
+        num = np.sum(a * b, axis=1)
+        return float(np.min(num / np.maximum(np.linalg.norm(a, axis=1)
+                                             * np.linalg.norm(b, axis=1), 1e-12)))
+
+    rows = np.arange(1000)
+    assert min_cosine(low.predict_proba_resident(rows), low.predict_proba(X[rows])) >= 0.999
+    assert min_cosine(low.predict_proba(X[rows]), f32.predict_proba(X[rows])) >= 0.999
+
+
+def test_eval_counts_and_indices_on_cuda(cuda):
+    """The fused eval and the device argmax against the host metrics on the
+    card: the count exact, the loss within rel 1e-5."""
+    from mermaid_classifier_tpu_torch.train.trainer import log_loss
+
+    X, y = _train_data(3000, 512, 10, seed=6)
+    clf = _resident_clf(cuda, X, dtype="int8")
+    idx = np.arange(3000)
+    clf.partial_fit_resident(idx, y, classes=np.unique(y))
+    proba = clf.predict_proba_resident(idx)
+    np.testing.assert_array_equal(clf.predict_indices_resident(idx), proba.argmax(1))
+    y_idx = np.searchsorted(clf.classes_, y)
+    counts = clf.eval_counts_resident(idx, y_idx)
+    assert counts[0] == (proba.argmax(1) == y_idx).sum()
+    assert counts[1] / 3000 == pytest.approx(log_loss(y, proba, labels=clf.classes_),
+                                             rel=1e-5)
+
+
+def test_trainer_resident_equals_streamed_on_cuda(cuda, tmp_path):
+    """MermaidTrainer on the card, resident f32 and streamed: the same
+    weights bit for bit, the same accuracies and early-stop record."""
+    from mermaid_classifier_tpu_torch.data.features_io import write_feature_file
+    from mermaid_classifier_tpu_torch.data.labels import ImageLabels, preprocess_labels
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+    from mermaid_classifier_tpu_torch.train.trainer import MermaidTrainer
+
+    X, y = _train_data(3000, 256, 8, seed=7)
+    labels = ImageLabels()
+    rowcols = np.stack([np.arange(20) * 3, np.arange(20) * 7], 1).astype(np.int32)
+    for i in range(150):
+        path = str(tmp_path / f"img_{i:03d}.features.npz")
+        write_feature_file(path, rowcols, X[i * 20:(i + 1) * 20])
+        labels.add_image(path, [(int(r), int(c), str(lab)) for (r, c), lab in
+                                zip(rowcols, y[i * 20:(i + 1) * 20])])
+    task = preprocess_labels(labels, split_ratios=(0.15, 0.15))
+
+    class Small(MermaidTrainer):
+        def _make_classifier(self, class_weight):
+            return MLPClassifier((64,), learning_rate_init=1e-3, random_state=0,
+                                 class_weight=class_weight, device=cuda)
+
+    out = []
+    for resident in (False, True):
+        trainer = Small(batch_size=500, early_stopping_patience=2, device=cuda,
+                        device_resident=resident, calibration_backend="device")
+        out.append((trainer, *trainer(task, nbr_epochs=3, pc_models=[])))
+    (ta, ca, va, ma), (tb, cb, vb, mb) = out
+    assert ma.ref_accs == mb.ref_accs
+    assert _same_weights(ca.estimator, cb.estimator)
+    assert ta._early_stop_info["best_val_epoch"] == tb._early_stop_info["best_val_epoch"]
+    assert va.est == vb.est
+
+
+def test_capture_failure_raises(cuda, monkeypatch):
+    """A step that cannot be captured raises; the eager loop is not run in
+    its place, and the state is the one before the call."""
+    from mermaid_classifier_tpu_torch.train import mlp_classifier as tmlp
+
+    X, y = _train_data(1000, 256, 5, seed=8)
+    clf = _resident_clf(cuda, X)
+    clf.partial_fit_resident(np.arange(1000), y, classes=np.unique(y))
+    before = clf.coefs_
+    real = tmlp.mlp_logits
+
+    def refuses_capture(*args):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("no capture here")
+        return real(*args)
+
+    monkeypatch.setattr(tmlp, "mlp_logits", refuses_capture)
+    clf.learning_rate_init = 2e-3  # a new hyperparameter: a new capture
+    with pytest.raises(RuntimeError, match="capture of the Adam step failed"):
+        clf.partial_fit_resident(np.arange(1000), y)
+    assert all(np.array_equal(u, v) for u, v in zip(clf.coefs_, before))
+    assert len(clf.loss_curve_) == 1
+    monkeypatch.setattr(tmlp, "mlp_logits", real)
+    clf.partial_fit_resident(np.arange(1000), y)
+    assert len(clf.loss_curve_) == 2 and np.isfinite(clf.loss_curve_[-1])

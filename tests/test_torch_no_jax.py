@@ -1,7 +1,7 @@
 """Import and no-fallback guards of the PyTorch port.
 
 Every module of ``mermaid_classifier_tpu_torch`` imports without jax, flax,
-optax, sklearn, pandas, PIL or any module of the JAX package
+optax, sklearn, pandas, PIL, ml_dtypes or any module of the JAX package
 ``mermaid_classifier_tpu`` (checked in a fresh interpreter: the test process
 has jax loaded by tests/conftest.py), and ``chip_smoke.py`` refuses to run —
 exit code non-zero, no ``"ok": true`` — where there is no CUDA card or no
@@ -16,7 +16,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 # The top-level name of each module: "mermaid_classifier_tpu_torch" is its
 # own name, not the JAX package's.
-FORBIDDEN = ("jax", "flax", "optax", "sklearn", "pandas", "PIL",
+FORBIDDEN = ("jax", "flax", "optax", "sklearn", "pandas", "PIL", "ml_dtypes",
              "mermaid_classifier_tpu")
 
 _IMPORT_ALL = f"""
