@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path, its head-training lane, its
-trainer and its full-trunk A/B harness on one CUDA card and check them.
+"""Drive the PyTorch port's serve path, its bulk extraction lane, its
+head-training lane, its trainer and its full-trunk A/B harness on one CUDA
+card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
 ``nvidia-smi``; it imports only the port (``mermaid_classifier_tpu_torch``),
-torch, numpy and (through the port's calibration) scipy, and exits non-zero
-at the first failed phase.
+torch, numpy, (through the port's calibration) scipy and, where it is
+installed, Pillow, and exits non-zero at the first failed phase.
 
 Phases, one output line each:
 
@@ -43,7 +44,34 @@ Phases, one output line each:
    batch 128 (bf16 and f32; fused kernel blocks and plain "folded" blocks),
    p50 latency of a 25-point request and its stages as the extractor runs
    them (raw upload, crop, trunk, head).
-8. train  — the head-training lane at production width, 4096 -> (500, 300,
+8. bucket — the bulk extraction lane at full width (B0 224, 4096-d,
+   ``fused``) on a seeded local store: source 1 in the canonical layout (24
+   images of 1536x2048, 25-200 points each on a grid of class-coloured
+   cells, the outer cells within 112 px of an edge, one truncated image
+   object), source 2 as a CoralNet export (24 images, status suffixes, two
+   rows naming no listed image); JPEG bytes where Pillow imports, else
+   ``.npy`` bytes (the port's decoder reads both). The port's
+   ``build_feature_bucket`` CLI in bf16 (the cosine gate runs on its own):
+   exit 1, the corrupt image in the error log, images and points done equal
+   the good images' annotation rows, every file's rowcols equal its
+   annotations in file order, four files equal ``extract_features`` bit for
+   bit, and the wrapper counts are one crop per image and 11 fused blocks
+   per 128-patch chunk (plus 11 for the gate). A second run writes nothing
+   (mtimes unchanged) and ``--no-skip-existing`` rewrites every file; an f32
+   run over four images (source 3) agrees with bf16 at min row cosine >=
+   0.999. Times: the builder in bf16 and f32 with its host stages timed
+   (fetch, decode, upload, dispatch, readback wait, write), images/s and
+   patch-features/s beside the times phase's trunk-only rate, the same
+   bf16 run with every image decoded beforehand, and a profiled bf16 run (device busy share; crop and fused kernels counted by
+   ``torch.profiler``); the raw upload's host time on an idle stream, right
+   after an image was dispatched, and pinned + non-blocking. Then the chain:
+   the bucket's files with their points' classes through ``MermaidTrainer``
+   (resident f32, 20 epochs), ``export_artifact`` (1e-6 gate), the
+   ``predict_features`` CLI (one CSV row per point extracted) and, on two
+   images, ``AnnotationRun`` from ``store://`` specs: the same top-3 labels,
+   scores within 2e-6 (each f32 head is held within 1e-6 of the f64 model
+   by the export gate, and the two run batches of other sizes).
+9. train  — the head-training lane at production width, 4096 -> (500, 300,
    100) -> 80, ``learning_rate_init`` 1e-4, ``random_state`` 0, auto
    mini-batch 200: seeded features (80 class means plus noise), 40,000
    training rows streamed as 4 ``partial_fit`` chunks of 10,000 per epoch
@@ -65,7 +93,7 @@ Phases, one output line each:
    step's bound, the chunk's upload, the device's busy share and kernels
    per step during one call (``torch.profiler``), the device and scipy
    calibration solves and the export gate (host clock).
-9. trainer — ``MermaidTrainer`` at the same width (classifier mini-batch
+10. trainer — ``MermaidTrainer`` at the same width (classifier mini-batch
    200, trainer batches of 10,000 rows) on 2,240 seeded feature files of 25
    points (80 class means plus noise), split 0.7 / 0.15 / 0.15: resident
    f32 for 3 epochs with early stopping (patience 2) and the device
@@ -84,7 +112,7 @@ Phases, one output line each:
    events per step and the device's busy share during one resident call
    (``torch.profiler``), each run's ``resident_timings``, and one resident
    epoch over 449,000 seeded int8 rows (1.84 GB staged) in 10,000-row calls.
-10. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
+11. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
    224, 128-patch chunks, on every schedule of ``AB_SCHEDULES``: in bf16 and
    f32 each schedule's ``gate_cosine`` against ``folded`` is >= 0.999;
    ``time_trunk`` patch-features/s of every schedule in bf16 and of
@@ -1016,6 +1044,565 @@ def phase_trainer(extractor, tmp: Path, smi: str):
     torch.cuda.empty_cache()
 
 
+BUCKET_IMAGES, BUCKET_POINTS = 24, (25, 200)  # per source; points per image
+BUCKET_CLASSES = ((200, 60, 40), (40, 190, 70), (60, 80, 220), (230, 200, 40),
+                  (150, 60, 190), (40, 200, 210), (240, 130, 30), (235, 235, 235))
+BUCKET_CORRUPT = "1005"
+BUCKET_GRID = (12, 17)  # cells of 128 x 120 px over the 1536 x 2048 image
+BUCKET_EPOCHS = 20
+
+
+def bucket_image(rng, n: int):
+    """A seeded IMAGE_HW image and n points: each point at a jittered
+    grid-cell center (the outer cells' within 112 px of an edge), its cell
+    painted its class colour over a textured background, as
+    scripts/e2e_smoke.py paints its classes. Returns (image, rowcols,
+    class indices)."""
+    import numpy as np
+
+    h, w = IMAGE_HW
+    gr, gc = BUCKET_GRID
+    ch, cw = h // gr, w // gc
+    image = rng.integers(90, 140, size=(h, w, 3), dtype=np.uint8)
+    cells = np.sort(rng.choice(gr * gc, n, replace=False))
+    cls = rng.integers(0, len(BUCKET_CLASSES), n)
+    rowcols = np.empty((n, 2), np.int32)
+    for i, (cell, k) in enumerate(zip(cells, cls)):
+        r0, c0 = (cell // gc) * ch, (cell % gc) * cw
+        color = np.asarray(BUCKET_CLASSES[k]) + rng.integers(-20, 21, 3)
+        image[r0:r0 + ch, c0:c0 + cw] = np.clip(color, 0, 255).astype(np.uint8)
+        rowcols[i] = (r0 + ch // 2 + rng.integers(-(ch // 6), ch // 6 + 1),
+                      c0 + cw // 2 + rng.integers(-(cw // 6), cw // 6 + 1))
+    order = rng.permutation(n)  # file order is not cell order
+    return image, rowcols[order], cls[order]
+
+
+def write_bucket_sources(store, rng, encode):
+    """Source "1" in the canonical layout (24 images, one corrupt object),
+    source "2" as a CoralNet export (24 images, image_list.csv with status
+    suffixes, two rows naming no listed image) and source "3": four of
+    source 1's good images with their rows, for the f32 run. Returns
+    {(source, image_id): (image key, rowcols, class indices)} of the
+    images that should extract."""
+    import numpy as np
+
+    truth = {}
+    rows1 = ["image_id,image_key,row,col"]
+    rows2 = ["Name,Row,Column"]
+    listing = ["Name,Image Page,Image URL"]
+    for s, source in enumerate(("1", "2")):
+        for i in range(BUCKET_IMAGES):
+            image, rowcols, cls = bucket_image(
+                rng, int(rng.integers(BUCKET_POINTS[0], BUCKET_POINTS[1] + 1)))
+            image_id = f"{source}{i:03d}"
+            key = (f"s1/images/{image_id}.jpg" if source == "1"
+                   else f"s2/images/{image_id}.jpg")
+            data = encode(image)
+            if image_id == BUCKET_CORRUPT:
+                data = data[: len(data) // 3]  # a truncated object
+            else:
+                truth[(source, image_id)] = (key, rowcols, cls)
+            store.put_bytes("src", key, data)
+            if source == "1":
+                rows1 += [f"{image_id},{key},{r},{c}" for r, c in rowcols]
+            else:
+                name = f"IMG_{i:04d}.JPG"
+                status = ("Confirmed", "Unconfirmed", "Unclassified")[i % 3]
+                listing.append(f"{name} - {status},/image/{image_id}/view/,")
+                rows2 += [f"{name},{r},{c}" for r, c in rowcols]
+                if i in (3, 17):
+                    rows2.append(f"GHOST_{i}.JPG,5,5")
+    store.put_bytes("src", "s1/annotations.csv", ("\n".join(rows1) + "\n").encode())
+    store.put_bytes("src", "s2/annotations.csv", ("\n".join(rows2) + "\n").encode())
+    store.put_bytes("src", "s2/image_list.csv", ("\n".join(listing) + "\n").encode())
+    f32_ids = sorted(i for s, i in truth if s == "1")[:4]
+    rows3 = ["image_id,image_key,row,col"]
+    for image_id in f32_ids:
+        key, rowcols, _ = truth[("1", image_id)]
+        rows3 += [f"{image_id},{key},{r},{c}" for r, c in rowcols]
+    store.put_bytes("src", "s3/annotations.csv", ("\n".join(rows3) + "\n").encode())
+    return truth, f32_ids
+
+
+# BatchNorm variances of the bucket's weights, as a multiple of those of
+# the calibration batch: a little wider than the batch's own keeps the
+# random trunk from amplifying bf16 rounding past the 0.999 gate against
+# f32 (the phase checks it), while its rows stay apart (the phase prints
+# how far).
+BUCKET_VAR_GAIN = 1.1
+
+
+def bn_calibrated(variables, config, patches):
+    """A copy of ``variables`` whose BatchNorm statistics are those of the
+    activations that ``patches`` produce, layer by layer (one train-mode
+    pass with momentum 1), as a trained network's are, with the variances
+    widened by ``BUCKET_VAR_GAIN``. The seeded statistics give every patch
+    nearly the same feature (``row_spread``, printed by the bucket
+    phase), which no head can learn from."""
+    import copy
+
+    import torch
+
+    from mermaid_classifier_tpu_torch.models.efficientnet import (
+        EfficientNetBackbone,
+        load_jax_variables,
+    )
+    from mermaid_classifier_tpu_torch.ops.fused_mbconv import full_f32
+
+    module = EfficientNetBackbone(config)
+    load_jax_variables(module, variables)
+    module = module.to(patches.device)
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    module.train()
+    with torch.no_grad(), full_f32():
+        module(patches.float())
+    out = copy.deepcopy(variables)
+    for key, val in module.state_dict().items():
+        if key.endswith(("running_mean", "running_var")):
+            node = out["batch_stats"]
+            for part in key.split(".")[:-2]:
+                node = node[part]
+            if key.endswith("mean"):
+                node["bn"]["mean"] = val.cpu().numpy()
+            else:
+                node["bn"]["var"] = val.cpu().numpy() * BUCKET_VAR_GAIN
+    return out
+
+
+def row_spread(features) -> float:
+    """Mean distance between the rows of ``features`` over their mean norm."""
+    import numpy as np
+
+    diff = features[:, None, :] - features[None, :, :]
+    n = len(features)
+    mean_dist = np.linalg.norm(diff, axis=2).sum() / (n * (n - 1))
+    return float(mean_dist / np.linalg.norm(features, axis=1).mean())
+
+
+def bucket_features(store, bucket, source, image_id):
+    import io
+
+    from mermaid_classifier_tpu_torch.data.feature_bucket import feature_key
+    from mermaid_classifier_tpu_torch.data.features_io import read_feature_file
+
+    return read_feature_file(io.BytesIO(
+        store.get_bytes(bucket, feature_key(source, image_id))))
+
+
+class StageClock:
+    """Host seconds per stage, summed over threads."""
+
+    def __init__(self):
+        import collections
+        import threading
+
+        self.seconds = collections.defaultdict(float)
+        self._lock = threading.Lock()
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self.seconds[name] += time.perf_counter() - t0
+        return timed
+
+
+def timed_bucket_run(store_root, extractor, target, clock=None, profile=False,
+                     decode=None):
+    """One builder run over sources 1 and 2 into ``target`` (no numerics
+    gate), with the host stages timed by ``clock`` and ``decode`` in place
+    of the default decoder: (wall s, result, torch.profiler or None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from mermaid_classifier_tpu_torch.data.feature_bucket import (
+        FeatureBucketBuilder,
+    )
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+    from mermaid_classifier_tpu_torch.serve.image_sources import decode_image_bytes
+
+    store = LocalFSObjectStore(store_root)
+    decode = decode or decode_image_bytes
+    if clock is not None:
+        store.get_bytes = clock.wrap("fetch", store.get_bytes)
+        decode = clock.wrap("decode", decode)
+        extractor._upload = clock.wrap("upload", extractor._upload)
+        dispatch = clock.wrap("dispatch", type(extractor).extract_features_async)
+
+        def extract_async(image, rowcols):
+            readback = dispatch(extractor, image, rowcols)
+            readback.wait = clock.wrap("readback", readback.wait)
+            return readback
+
+        extractor.extract_features_async = extract_async
+    builder = FeatureBucketBuilder(store, "src", target, extractor,
+                                   decode_image=decode)
+    if clock is not None:
+        builder._write_features = clock.wrap("write", builder._write_features)
+    torch.cuda.synchronize()
+    prof = torch_profile(activities=[ProfilerActivity.CUDA]) if profile else None
+    if prof is not None:
+        prof.__enter__()
+        # A first kernel for the trace to start on: one run's trace missed
+        # the first of its 47 crop kernels while the wrapper counted 47.
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = builder.run(["1", "2"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    for name in ("_upload", "extract_features_async"):
+        extractor.__dict__.pop(name, None)
+    return wall, result, prof
+
+
+def phase_bucket(variables, config, tmp: Path, smi: str, trunk_rates: dict):
+    """The bulk extraction lane at full width (B0 224, 4096-d, fused):
+    the port's build_feature_bucket CLI in bf16 over a seeded local store,
+    resume and no-skip runs, an f32 run, timed and profiled builder runs,
+    then the bucket's files through MermaidTrainer, the gated export,
+    the predict_features CLI and AnnotationRun."""
+    import csv
+    import io
+    import os
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.data.feature_bucket import feature_key
+    from mermaid_classifier_tpu_torch.data.labels import (
+        ImageLabels,
+        preprocess_labels,
+    )
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+    from mermaid_classifier_tpu_torch.inference import (
+        export_artifact,
+        load_predictor,
+    )
+    from mermaid_classifier_tpu_torch.models.convert import save_backbone_npz
+    from mermaid_classifier_tpu_torch.models.extractor import build_extractor
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.scripts import build_feature_bucket
+    from mermaid_classifier_tpu_torch.scripts import predict_features
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from mermaid_classifier_tpu_torch.serve.batch_predict import (
+        predict_feature_files,
+        write_predictions_csv,
+    )
+    from mermaid_classifier_tpu_torch.serve.image_sources import (
+        ImageFetcher,
+        decode_image_bytes,
+    )
+    from mermaid_classifier_tpu_torch.train.trainer import MermaidTrainer
+
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+
+    def encode(image):
+        buf = io.BytesIO()
+        if Image is None:
+            np.save(buf, image)
+        else:
+            Image.fromarray(image).save(buf, format="JPEG", quality=92)
+        return buf.getvalue()
+
+    phase_t0 = time.perf_counter()
+    fmt = "JPEG (Pillow)" if Image is not None else ".npy bytes (no Pillow)"
+    root = tmp / "bucket_store"
+    store = LocalFSObjectStore(root)
+    rng = np.random.default_rng(SEED + 12)
+    t0 = time.perf_counter()
+    truth, f32_ids = write_bucket_sources(store, rng, encode)
+    setup_s = time.perf_counter() - t0
+    n_images = len(truth)
+    n_points = sum(len(rc) for _, rc, _ in truth.values())
+    chunks = sum(-(-len(rc) // 128) for _, rc, _ in truth.values())
+    # The bucket's weights: the seeded ones with their BatchNorm statistics
+    # taken from 96 patches of two images outside the store.
+    ext32 = build_extractor(variables, config, device="cuda")
+    calib = []
+    for _ in range(2):
+        image, rowcols, _ = bucket_image(rng, 48)
+        calib.append(ext32.extract_patches(image, rowcols))
+    calib = torch.cat(calib)
+    seeded = ext32.features_for_patches(calib[:16])
+    variables = bn_calibrated(variables, config, calib)
+    calibrated = build_extractor(variables, config, device="cuda").features_for_patches(
+        calib[:16])
+    del ext32, calib
+    say(f"bucket: rows of 16 patches lie {row_spread(seeded):.2e} of their norm"
+        f" apart with the seeded BatchNorm statistics, {row_spread(calibrated):.2e}"
+        f" with the bucket's (statistics of 96 of its patches, variances"
+        f" x{BUCKET_VAR_GAIN})")
+    weights = tmp / "b0_weights.npz"
+    save_backbone_npz(str(weights), variables, config)
+    os.environ["OBJECT_STORE_ROOT"] = str(root)
+    say(f"bucket: store of {n_images + 1} images ({fmt}, {IMAGE_HW[0]}x"
+        f"{IMAGE_HW[1]}) over sources 1 (canonical, one corrupt) and 2"
+        f" (CoralNet export), {n_points} points in {chunks} 128-patch chunks,"
+        f" written in {setup_s:.1f} s")
+
+    logs = tmp / "bucket_logs"
+
+    def cli(*extra, target="bf16"):
+        argv = ["--source-bucket", "src", "--target-bucket", target,
+                "--backbone-weights", str(weights),
+                "--progress-log", str(logs / f"{target}.jsonl"),
+                "--error-log", str(logs / f"{target}.csv"), *extra]
+        t1 = time.perf_counter()
+        rc = build_feature_bucket.main(argv)
+        torch.cuda.synchronize()
+        return rc, time.perf_counter() - t1
+
+    def progress(target):
+        path = logs / f"{target}.jsonl"
+        return ([json.loads(line) for line in path.read_text().splitlines()]
+                if path.exists() else [])
+
+    def errors(target):
+        with open(logs / f"{target}.csv", newline="") as fh:
+            return list(csv.DictReader(fh))
+
+    # 1. The bf16 run through the CLI: the automatic cosine gate, one failure.
+    patch_crop.launches = fused_mbconv.launches = 0
+    rc, cli_s = cli("--source-ids", "1,2", "--compute-dtype", "bfloat16")
+    launches = (patch_crop.launches, fused_mbconv.launches)
+    if rc != 1:
+        fail(f"bucket: the bf16 CLI run exited {rc}, want 1 (one corrupt image)")
+    records = progress("bf16")
+    if [e["image_id"] for e in errors("bf16")] != [BUCKET_CORRUPT]:
+        fail(f"bucket: error log {errors('bf16')}")
+    done = {(r["source_id"], r["image_id"]): r["points"] for r in records}
+    want_done = {k: len(rc_) for k, (_, rc_, _) in truth.items()}
+    if done != want_done or len(records) != n_images:
+        fail(f"bucket: progress records {len(records)} (want {n_images}),"
+             f" points {sum(done.values())} (want {n_points})")
+    # The gate runs 8 patches through the trunk: 11 more fused launches.
+    if launches != (n_images, 11 * chunks + 11):
+        fail(f"bucket: launches (crop, fused) {launches}, want"
+             f" ({n_images}, {11 * chunks + 11})")
+    for (source, image_id), (_, rowcols, _) in truth.items():
+        got_rc, feats = bucket_features(store, "bf16", source, image_id)
+        if not np.array_equal(got_rc, rowcols) or not np.isfinite(feats).all() \
+                or feats.shape != (len(rowcols), config.feature_dim):
+            fail(f"bucket: file {source}/{image_id} rowcols or features wrong")
+    bf16_config = replace(config, compute_dtype="bfloat16")
+    extractor = build_extractor(variables, bf16_config, device="cuda")
+    spot = sorted(truth)[:: len(truth) // 4][:4]
+    for source, image_id in spot:
+        key, rowcols, _ = truth[(source, image_id)]
+        image = decode_image_bytes(store.get_bytes("src", key))
+        _, feats = bucket_features(store, "bf16", source, image_id)
+        if not np.array_equal(feats, extractor.extract_features(image, rowcols)):
+            fail(f"bucket: {source}/{image_id} differs from extract_features")
+    say(f"bucket: bf16 CLI run (cosine gate on) exit 1, {len(records)} images"
+        f" and {sum(done.values())} points done, the corrupt image {BUCKET_CORRUPT}"
+        f" in the error log; every file's rowcols equal its annotations in file"
+        f" order; {len(spot)} files equal extract_features bit for bit;"
+        f" launches crop={launches[0]} fused={launches[1]} (11 x {chunks}"
+        f" chunks + 11 for the gate); {cli_s:.2f} s with the extractor's build"
+        f" and the gate")
+
+    # 2. Resume: nothing written; then --no-skip-existing rewrites all.
+    keys = [k for k in store.list_keys("bf16") if k.endswith(".features.npz")]
+    mtimes = {k: store._path("bf16", k).stat().st_mtime_ns for k in keys}
+    rc, resume_s = cli("--source-ids", "1,2", "--compute-dtype", "bfloat16")
+    after = {k: store._path("bf16", k).stat().st_mtime_ns for k in keys}
+    if rc != 1 or after != mtimes or len(progress("bf16")) != n_images \
+            or len(errors("bf16")) != 2:
+        fail(f"bucket: resume exit {rc}, files rewritten"
+             f" {sum(after[k] != mtimes[k] for k in keys)}, progress"
+             f" {len(progress('bf16'))}, errors {len(errors('bf16'))}")
+    rc, noskip_s = cli("--source-ids", "1,2", "--compute-dtype", "bfloat16",
+                       "--no-skip-existing")
+    after = {k: store._path("bf16", k).stat().st_mtime_ns for k in keys}
+    if rc != 1 or any(after[k] <= mtimes[k] for k in keys) \
+            or len(progress("bf16")) != 2 * n_images:
+        fail(f"bucket: --no-skip-existing exit {rc}, rewrote"
+             f" {sum(after[k] > mtimes[k] for k in keys)} of {len(keys)}")
+    say(f"bucket: resume wrote nothing ({len(keys)} files' mtimes unchanged, the"
+        f" corrupt image failed again, {resume_s:.2f} s); --no-skip-existing"
+        f" rewrote all {len(keys)} ({noskip_s:.2f} s)")
+
+    # 3. f32 over four images into a second bucket, against bf16.
+    rc, f32_cli_s = cli("--source-ids", "3", "--compute-dtype", "float32",
+                        target="f32")
+    if rc != 0:
+        fail(f"bucket: the f32 CLI run exited {rc}")
+    cos = min(min_row_cosine(bucket_features(store, "bf16", "1", i)[1],
+                             bucket_features(store, "f32", "3", i)[1])
+              for i in f32_ids)
+    if not cos >= 0.999:
+        fail(f"bucket: bf16 against f32 min row cosine {cos} (>= 0.999)")
+    say(f"bucket: f32 CLI run over {len(f32_ids)} images: bf16 against f32 min"
+        f" row cosine {cos:.6f} (>= 0.999)")
+
+    # 4. Times: the builder with its host stages timed, in bf16 and f32;
+    # then a profiled bf16 run for the device's busy share and the kernels.
+    rates = {}
+    for dtype in ("bfloat16", "float32"):
+        ext = build_extractor(variables, replace(config, compute_dtype=dtype),
+                              device="cuda")
+        timed_bucket_run(root, ext, f"warm-{dtype}")  # first-use costs
+        clock = StageClock()
+        wall, result, _ = timed_bucket_run(root, ext, f"timed-{dtype}", clock)
+        if result.sources[0].images_failed != 1 or sum(
+                s.images_done for s in result.sources) != n_images:
+            fail(f"bucket: timed {dtype} run {result.describe()}")
+        rates[dtype] = (wall, n_images / wall, n_points / wall, dict(clock.seconds))
+    # The same bf16 run with every image decoded beforehand (the decoder
+    # returns the stored array): the main thread's dispatch without the
+    # decode threads beside it.
+    decoded = {}
+    for key, _, _ in truth.values():
+        data = store.get_bytes("src", key)
+        decoded[len(data)] = decode_image_bytes(data)
+    if len(decoded) != n_images:
+        fail("bucket: two images' encoded sizes coincide")
+    ext = build_extractor(variables, bf16_config, device="cuda")
+    clock = StageClock()
+    wall, _, _ = timed_bucket_run(root, ext, "predecoded", clock,
+                                  decode=lambda data: decoded[len(data)])
+    rates["bfloat16, decoded beforehand"] = (
+        wall, n_images / wall, n_points / wall, dict(clock.seconds))
+    del decoded, ext
+    torch.cuda.synchronize()
+    patch_crop.launches = fused_mbconv.launches = 0
+    wall_p, _, prof = timed_bucket_run(root, extractor, "profiled", profile=True)
+    if (patch_crop.launches, fused_mbconv.launches) != (n_images, 11 * chunks):
+        fail(f"bucket: the profiled run launched (crop, fused)"
+             f" ({patch_crop.launches}, {fused_mbconv.launches}), want"
+             f" ({n_images}, {11 * chunks})")
+    from torch.autograd import DeviceType
+
+    counts, busy_us = {"crop_kernel": 0, "expand_dw_kernel": 0}, 0.0
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False):
+            continue
+        busy_us += ev.time_range.elapsed_us()
+        for name in counts:
+            counts[name] += name in ev.name
+    if counts["crop_kernel"] != n_images or counts["expand_dw_kernel"] != 11 * chunks:
+        fail(f"bucket: profiled kernels {counts}, want crop {n_images},"
+             f" expand_dw {11 * chunks}")
+    say(f"time bucket on: {smi}")
+    for dtype, (wall, ims, pfs, stages) in rates.items():
+        trunk = trunk_rates[(dtype.split(",")[0], "fused")]
+        say(f"time bucket {dtype} builder run ({n_images} images, {n_points}"
+            f" points, {fmt}, 8 decode threads, prefetch 16): {wall:.3f} s,"
+            f" {ims:.2f} images/s, {pfs:.1f} patch-features/s against the trunk"
+            f" alone at batch 128 {trunk:.1f} ({pfs / trunk:.1%} of it); host s"
+            f" (summed over threads): fetch {stages.get('fetch', 0):.3f}, decode"
+            f" {stages.get('decode', 0):.3f}, upload {stages.get('upload', 0):.3f},"
+            f" dispatch without upload"
+            f" {stages.get('dispatch', 0) - stages.get('upload', 0):.3f},"
+            f" readback wait {stages.get('readback', 0):.3f}, write"
+            f" {stages.get('write', 0):.3f}")
+    say(f"time bucket bf16 profiled run (torch.profiler, CUDA activity):"
+        f" {wall_p:.3f} s, device busy {busy_us / 1e3:.1f} ms"
+        f" ({busy_us / 1e6 / wall_p:.1%} of the loop); kernels crop"
+        f" {counts['crop_kernel']} (images), fused expand_dw"
+        f" {counts['expand_dw_kernel']} (11 x {chunks} chunks)")
+
+    # Does the pageable raw upload block the host while the previous image
+    # computes? Its host time after a 128-point image is queued, against the
+    # same upload on an idle stream and a pinned non-blocking copy.
+    key, rowcols, _ = truth[spot[0]]
+    image = decode_image_bytes(store.get_bytes("src", key))
+    pts = points(rng, 128)
+    probe = {"idle": [], "queued": [], "pinned queued": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        extractor._upload(image)
+        probe["idle"].append(time.perf_counter() - t1)
+        extractor.extract_features_device(image, pts)
+        t1 = time.perf_counter()
+        extractor._upload(image)
+        probe["queued"].append(time.perf_counter() - t1)
+        extractor.extract_features_device(image, pts)
+        t1 = time.perf_counter()
+        torch.from_numpy(image).pin_memory().to("cuda", non_blocking=True)
+        probe["pinned queued"].append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    say("time bucket raw upload (host ms, median of 5; 'queued': right after"
+        " a 128-point image was dispatched): " + ", ".join(
+            f"{k} {sorted(v)[2] * 1e3:.3f}" for k, v in probe.items()))
+
+    # 5. The chain: the bucket's files -> MermaidTrainer -> gated export ->
+    # predict_features CLI -> equal to AnnotationRun on two images.
+    names = [f"class-{k}" for k in range(len(BUCKET_CLASSES))]
+    labels = ImageLabels()
+    files = []
+    for (source, image_id), (_, rowcols, cls) in sorted(truth.items()):
+        path = str(store._path("bf16", feature_key(source, image_id)))
+        files.append(path)
+        labels.add_image(path, [(int(r), int(c), names[k])
+                                for (r, c), k in zip(rowcols, cls)])
+    split = preprocess_labels(labels, split_ratios=(0.15, 0.15))
+    trainer = MermaidTrainer(batch_size=2_000, device_resident=True,
+                             calibration_backend="device", device="cuda")
+    t1 = time.perf_counter()
+    cal, _, msg = trainer(split, BUCKET_EPOCHS, pc_models=[])
+    train_s = time.perf_counter() - t1
+    x_val, _ = split.val.load_all()
+    art = tmp / "bucket_artifact"
+    _, _, diff = export_artifact(cal, art, x_val[:2048])
+    if not diff <= 1e-6:
+        fail(f"bucket: export gate max |dp| {diff}")
+    out_csv = tmp / "bucket_predictions.csv"
+    rc = predict_features.main(["--classifier", str(art), "--output", str(out_csv),
+                                *files])
+    with open(out_csv, newline="") as fh:
+        csv_rows = list(csv.DictReader(fh))
+    if rc != 0 or len(csv_rows) != n_points:
+        fail(f"bucket: predict_features exit {rc}, {len(csv_rows)} rows for"
+             f" {n_points} points")
+    # The CLI's rows, computed again in the same packing: the CSV is them.
+    rows = predict_feature_files(load_predictor(art, device="cuda"), files)
+    write_predictions_csv(rows, tmp / "bucket_predictions_again.csv", top_n=3)
+    if (tmp / "bucket_predictions_again.csv").read_text() != out_csv.read_text():
+        fail("bucket: predict_features' CSV differs from predict_feature_files")
+    fetcher = ImageFetcher(store=store)
+    worst = 0.0
+    for source, image_id in spot[:2]:
+        key, rowcols, _ = truth[(source, image_id)]
+        points_csv = tmp / f"bucket_points_{image_id}.csv"
+        write_points(points_csv, rowcols)
+        run = AnnotationRun(f"store://src/{key}", points_csv, str(art),
+                            extractor=extractor, fetcher=fetcher)
+        path = files[sorted(truth).index((source, image_id))]
+        mine = [r for r in rows if r.source_file == path]
+        for pred, row in zip(run.run(), mine, strict=True):
+            worst = max(worst, max(abs(a - b) for a, b in zip(row.scores, pred.scores)))
+            if (row.row, row.col) != (pred.row, pred.col) or list(row.labels) != pred.labels:
+                fail(f"bucket: predict_features row {row} against AnnotationRun {pred}")
+    # Two f32 heads over batches of other sizes sum in other orders; the
+    # export gate holds each within 1e-6 of the f64 model, so two of them
+    # agree within 2e-6 (run 1 of this phase read 1.16e-6).
+    if not worst <= 2e-6:
+        fail(f"bucket: predict_features scores against AnnotationRun max |d| {worst}")
+    say(f"bucket: chain: {len(files)} bucket files -> MermaidTrainer (resident"
+        f" f32, {BUCKET_EPOCHS} epochs, {train_s:.2f} s, val accuracy {msg.acc:.4f}) ->"
+        f" export gate max |dp| {diff:.3e} (<= 1e-6) -> predict_features CSV of"
+        f" {len(csv_rows)} rows (= points extracted); on 2 images its top-3"
+        f" labels equal AnnotationRun's, scores within {worst:.2e} (<= 2e-6)")
+    say(f"bucket: phase took {time.perf_counter() - phase_t0:.1f} s")
+    del extractor, trainer, cal
+    torch.cuda.empty_cache()
+
+
 def phase_trunk_ab(variables, config, results):
     import contextlib
     import io
@@ -1358,6 +1945,7 @@ def phase_times(config, folded, results, extractor, run25, smi):
 
     patches = torch.from_numpy(
         rng.random((PATCHES, ps, ps, 3)).astype(np.float32)).cuda()
+    trunk_rates = {}
     for dtype in ("bfloat16", "float32"):
         for impl in ("fused", "folded"):
             trunk = build_extractor(
@@ -1367,6 +1955,7 @@ def phase_times(config, folded, results, extractor, run25, smi):
             x = patches.to(trunk.dtype)
             with torch.inference_mode():
                 trunk_ms = cuda_ms(lambda: trunk._forward(x), iters=10)
+            trunk_rates[(dtype, impl)] = PATCHES / trunk_ms * 1e3
             say(f"time trunk {dtype} {impl} batch {PATCHES}: {trunk_ms:.3f} ms,"
                 f" {PATCHES / trunk_ms * 1e3:.1f} patch-features/s")
 
@@ -1406,6 +1995,7 @@ def phase_times(config, folded, results, extractor, run25, smi):
         staged()
     say("time request 25 points by stage (p50 ms): " + ", ".join(
         f"{name} {sorted(v[3:])[len(v[3:]) // 2]:.3f}" for name, v in stages.items()))
+    return trunk_rates
 
 
 def main() -> None:
@@ -1431,11 +2021,12 @@ def main() -> None:
     phase_trunk(variables, config)
     with tempfile.TemporaryDirectory() as tmp:
         extractor, run25 = phase_serve(variables, config, results, Path(tmp))
-        # The kernels' profiler readings come before any CUDA graph is
-        # profiled: after the training phases traced graph replays, later
-        # profiles in the process read device times below the kernels'
-        # bounds (PERF.md, the training lane).
-        phase_times(config, folded, results, extractor, run25, smi)
+        # The kernels' profiler readings (times, bucket) come before any
+        # CUDA graph is profiled: after the training phases traced graph
+        # replays, later profiles in the process read device times below
+        # the kernels' bounds (PERF.md, the training lane).
+        trunk_rates = phase_times(config, folded, results, extractor, run25, smi)
+        phase_bucket(variables, config, Path(tmp), smi, trunk_rates)
         phase_train(extractor, Path(tmp), smi)
         phase_trainer(extractor, Path(tmp), smi)
         phase_trunk_ab(variables, config, results)

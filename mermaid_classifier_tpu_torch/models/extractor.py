@@ -13,6 +13,13 @@ on one device, given explicitly (``device="cuda"`` or ``"cpu"``; there is no
 3. the trunk runs over chunks of ``backbone_batch`` patches, a Python loop
    (PyTorch runs eagerly, so the last chunk keeps its own size).
 
+``extract_features_async`` is the bulk path's hand-off: it dispatches one
+image, queues a non-blocking copy of its features into pinned host memory
+and records an event after it. ``FeatureReadback.wait`` waits on that event
+alone, so a reader on another thread gets this image's features while the
+next image, queued behind it on the same stream, keeps running (a plain
+``.cpu()`` there would wait for the whole stream).
+
 ``backbone_impl`` picks the trunk: ``"fused"`` (default: folded weights, the
 fused-MBConv kernel for every fusable block), ``"folded"`` (folded weights,
 plain PyTorch blocks) or ``"module"`` (the ``nn.Module`` forward, the
@@ -73,6 +80,22 @@ def _module_forward(variables, config: EfficientNetConfig, device):
             return module(patches)
 
     return forward
+
+
+class FeatureReadback:
+    """One image's (P, D) float32 features on their way to the host: the
+    host tensor a copy is queued into, and the CUDA event recorded after
+    the copy (None when the features were computed on the CPU)."""
+
+    def __init__(self, host: torch.Tensor, event: torch.cuda.Event | None = None):
+        self._host = host
+        self._event = event
+
+    def wait(self) -> np.ndarray:
+        """The features as a numpy array, once their copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 class FeatureExtractor:
@@ -219,6 +242,19 @@ class FeatureExtractor:
         return self.features_for_patches_device(
             self.extract_patches(image, rowcols)
         )
+
+    def extract_features_async(self, image: np.ndarray, rowcols) -> FeatureReadback:
+        """Dispatch one image and queue its features' readback without
+        waiting for it (see the module docstring). On the CPU the
+        hand-off is a plain copy."""
+        features = self.extract_features_device(image, rowcols)
+        if features.device.type != "cuda":
+            return FeatureReadback(features.clone())
+        host = torch.empty(features.shape, dtype=features.dtype, pin_memory=True)
+        host.copy_(features, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(features.device))
+        return FeatureReadback(host, event)
 
     def extract_features(self, image: np.ndarray, rowcols) -> np.ndarray:
         """The per-image entry point: decoded image + points -> (P, D)

@@ -1,39 +1,77 @@
 """Single-image classify: the serve-shape forward pass.
 
 Port of ``mermaid_classifier_tpu/serve/annotation.py``: resolve a classifier
-artifact from a local directory, extract features for the image's annotated
-points through the cached backbone, classify every point in ONE batched
-predict_proba call, rank top-N and write them back to the points CSV.
+artifact from a local directory or an object-store prefix, extract features
+for the image's annotated points through the cached backbone, classify every
+point in ONE batched predict_proba call, rank top-N and write them back to
+the points CSV.
 
 The points file is read with the stdlib ``csv`` module. The image is a
-decoded (H, W, 3) uint8 array or a local path (``.npy`` read by numpy; other
-formats decoded by Pillow, imported only for them). The registry
-(``models:/``) and object-store (``store://``) specs, ``show()`` and the
-CoralNet image fetcher stay in the JAX package for now.
+decoded (H, W, 3) uint8 array or a spec resolved by the injectable
+``ImageFetcher`` (``serve/image_sources.py``): a local path, a
+``store://`` URI or a CoralNet image ID. The registry spec (``models:/``)
+needs the tracker (``tracking/``), which this package does not have yet;
+the marker overlay (``show()``) is not ported.
 """
 
 from __future__ import annotations
 
 import csv
+import json
+import tempfile
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
 from mermaid_classifier_tpu_torch.inference.loader import Predictor, load_predictor
+from mermaid_classifier_tpu_torch.serve.image_sources import ImageFetcher
 
 _ROW_ALIASES = ("row", "Row", "ROW")
 _COL_ALIASES = ("col", "Col", "COL", "column", "Column")
 
 
-def resolve_classifier_artifact(spec: str | Path) -> Path:
-    """A local artifact directory holding ``model.npz`` + ``model.json``."""
-    path = Path(spec)
-    if str(spec).startswith(("models:/", "store://")):
+def resolve_classifier_artifact(
+    spec: str | Path,
+    *,
+    store=None,
+    cache_dir: str | Path | None = None,
+) -> Path:
+    """Resolve a classifier spec to a local artifact directory holding
+    ``model.npz`` + ``model.json``.
+
+    Accepted forms:
+    - a local directory path;
+    - ``store://<bucket>/<prefix>``: an object-store directory, downloaded
+      into ``cache_dir`` (a new temporary directory when None).
+    ``models:/`` raises: the registry needs ``tracking/``.
+    """
+    spec = str(spec)
+    if spec.startswith("models:/"):
         raise ValueError(
-            f"classifier spec {spec!r}: only local artifact directories are"
-            " resolved by this package"
+            f"classifier spec {spec!r}: the model registry (models:/) needs"
+            " tracking/, which this package does not have yet; give a local"
+            " artifact directory or a store://bucket/prefix"
         )
+    if spec.startswith("store://"):
+        if store is None:
+            from mermaid_classifier_tpu_torch.data.store import get_default_store
+
+            store = get_default_store()
+        rest = spec[len("store://"):]
+        bucket, _, prefix = rest.partition("/")
+        prefix = prefix.rstrip("/")
+        cache_dir = (
+            Path(cache_dir) if cache_dir
+            else Path(tempfile.mkdtemp(prefix="artifact_"))
+        )
+        for fname in ("model.npz", "model.json"):
+            store.download(bucket, f"{prefix}/{fname}", cache_dir / fname)
+        return _validated_artifact_dir(cache_dir)
+    return _validated_artifact_dir(Path(spec))
+
+
+def _validated_artifact_dir(path: Path) -> Path:
     if not path.is_dir():
         raise FileNotFoundError(f"artifact directory {path} does not exist.")
     for fname in ("model.npz", "model.json"):
@@ -83,19 +121,6 @@ def read_points_csv(path: str | Path) -> PointsTable:
     return PointsTable([renames.get(c, c) for c in columns], records)
 
 
-def load_image(image) -> np.ndarray:
-    """A decoded (H, W, 3) uint8 array from an array or a local path."""
-    if isinstance(image, np.ndarray):
-        return image
-    path = Path(image)
-    if path.suffix == ".npy":
-        return np.load(path, allow_pickle=False)
-    from PIL import Image
-
-    with Image.open(path) as img:
-        return np.asarray(img.convert("RGB"), dtype=np.uint8)
-
-
 @dataclass
 class PointPrediction:
     row: int
@@ -107,7 +132,8 @@ class PointPrediction:
 class AnnotationRun:
     """Classify every annotated point of one image through the shipped
     artifact, as production serving does. The predictor runs on the
-    extractor's device."""
+    extractor's device. ``image`` is a decoded array or a spec for
+    ``fetcher`` (default: an ``ImageFetcher()``)."""
 
     def __init__(
         self,
@@ -117,10 +143,12 @@ class AnnotationRun:
         *,
         extractor,
         top_n: int = 3,
+        fetcher=None,
     ) -> None:
         self.image_spec = image
         self.points_csv = Path(points_csv)
         self.top_n = int(top_n)
+        self.fetcher = fetcher or ImageFetcher()
         if isinstance(classifier, Predictor):
             self.predictor = classifier
         else:
@@ -135,7 +163,9 @@ class AnnotationRun:
         self.proba: np.ndarray | None = None
 
     def load_image(self) -> np.ndarray:
-        return load_image(self.image_spec)
+        if isinstance(self.image_spec, np.ndarray):
+            return self.image_spec
+        return self.fetcher.fetch(self.image_spec)
 
     def run(self) -> list[PointPrediction]:
         """Feature-extract all points, classify them in one batch, rank
@@ -196,3 +226,13 @@ class AnnotationRun:
                        key=lambda kv: -kv[1])
             ),
         }
+
+
+def write_run_report(run: AnnotationRun, output_dir: str | Path) -> Path:
+    """Predictions CSV + JSON summary in one directory (the JAX report's
+    overlay PNG is not written: ``show()`` is not ported)."""
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    run.write_predictions(output_dir / "predictions.csv")
+    (output_dir / "summary.json").write_text(json.dumps(run.summary(), indent=2))
+    return output_dir

@@ -693,3 +693,77 @@ def test_capture_failure_raises(cuda, monkeypatch):
     monkeypatch.setattr(tmlp, "mlp_logits", real)
     clf.partial_fit_resident(np.arange(1000), y)
     assert len(clf.loss_curve_) == 2 and np.isfinite(clf.loss_curve_[-1])
+
+
+def _npy_bytes(array) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, array)
+    return buf.getvalue()
+
+
+def test_bucket_on_cuda_equals_per_image_extraction(cuda, tmp_path):
+    """The feature-bucket builder on the card (decode-ahead, the event
+    hand-off, the writer thread) writes each image's features bit for bit
+    as a per-image ``extract_features`` call computes them; ragged point
+    counts span one to three 8-patch chunks."""
+    import io
+
+    from mermaid_classifier_tpu_torch.data.feature_bucket import (
+        FeatureBucketBuilder,
+        annotations_key,
+        feature_key,
+    )
+    from mermaid_classifier_tpu_torch.data.features_io import read_feature_file
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+
+    config = CONFIGS["b0_60px"]
+    extractor = build_extractor(
+        _perturbed_variables(config, np.random.default_rng(2)), config,
+        device=cuda, backbone_batch=8, point_bucket=4)
+    store = LocalFSObjectStore(tmp_path / "store")
+    rng = np.random.default_rng(4)
+    lines, images = ["image_id,image_key,row,col"], {}
+    for i, n in enumerate((1, 8, 9, 23, 5)):
+        h, w = 70 + 7 * i, 90 - 5 * i
+        images[str(i)] = image = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        store.put_bytes("src", f"s1/{i}.npy", _npy_bytes(image))
+        pts = np.stack([rng.integers(0, h, n), rng.integers(0, w, n)], 1)
+        pts[0] = (h - 1, 0)
+        lines += [f"{i},s1/{i}.npy,{r},{c}" for r, c in pts]
+    store.put_bytes("src", annotations_key("1"), "\n".join(lines).encode())
+    result = FeatureBucketBuilder(store, "src", "dst", extractor,
+                                  decode_workers=2, prefetch=3).run(["1"])
+    assert (result.exit_code, result.sources[0].images_done) == (0, 5)
+    for image_id, image in images.items():
+        rowcols, features = read_feature_file(io.BytesIO(
+            store.get_bytes("dst", feature_key("1", image_id))))
+        want = extractor.extract_features(image, rowcols)
+        assert features.dtype == np.float32
+        np.testing.assert_array_equal(features, want)
+
+
+def test_readback_waits_for_its_own_image_only(cuda):
+    """``FeatureReadback.wait`` returns image A's features without waiting
+    for the stream: image B and a one-second spin queued after A on the
+    same stream are still running when it returns; then B's own wait
+    returns B's features. (The spin goes after B: B's pageable upload
+    waits for the stream before it is queued.)"""
+    config = CONFIGS["b0_60px"]
+    extractor = build_extractor(
+        _perturbed_variables(config, np.random.default_rng(2)), config,
+        device=cuda, backbone_batch=8, point_bucket=4)
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (80, 96, 3), dtype=np.uint8) for _ in range(2)]
+    points = [np.stack([rng.integers(0, 80, n), rng.integers(0, 96, n)], 1)
+              for n in (13, 6)]
+    want = [extractor.extract_features(im, pts) for im, pts in zip(images, points)]
+    torch.cuda.synchronize()
+    a = extractor.extract_features_async(images[0], points[0])
+    b = extractor.extract_features_async(images[1], points[1])
+    torch.cuda._sleep(2_000_000_000)  # about one second of spinning
+    got_a = a.wait()
+    assert not torch.cuda.current_stream(cuda).query()  # the stream still runs
+    np.testing.assert_array_equal(got_a, want[0])
+    np.testing.assert_array_equal(b.wait(), want[1])
