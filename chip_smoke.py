@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serve path, its bulk extraction lane, its
-head-training lane, its trainer and its full-trunk A/B harness on one CUDA
-card and check them.
+head-training lane, its trainer, its training recipe (ETL -> resident train
+-> gated export -> metrics -> registry -> ``models:/`` serve) and its
+full-trunk A/B harness on one CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
 ``nvidia-smi``; it imports only the port (``mermaid_classifier_tpu_torch``),
-torch, numpy, (through the port's calibration) scipy and, where it is
+torch, numpy, (through the port's calibration) scipy, pyarrow (to write the
+recipe's annotation tables as production has them) and, where it is
 installed, Pillow, and exits non-zero at the first failed phase.
 
 Phases, one output line each:
@@ -112,7 +114,30 @@ Phases, one output line each:
    events per step and the device's busy share during one resident call
    (``torch.profiler``), each run's ``resident_timings``, and one resident
    epoch over 449,000 seeded int8 rows (1.84 GB staged) in 10,000-row calls.
-11. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
+11. recipe — the training recipe through its programmatic entry point,
+   ``TrackingTrainingRunner(...).run()``, at the production head's width
+   (4096 -> (500, 300, 100) -> 80, mini-batch 200, lr 1e-4) on a seeded
+   local store named by ``OBJECT_STORE_ROOT``: 1,200 MERMAID-layout and 200
+   CoralNet-layout feature files of 25 points (a class mean plus unit noise,
+   35,000 rows of 4096), the taxonomy through ``TAXONOMY_FIXTURE_ENV``
+   (82 BA x GF classes under 4 top-level BAs, a rollup CSV folding 2 of
+   them, a CoralNet mapping with one label left unmapped), the two
+   annotation tables as parquet, a stratified subsample to 90%, effective-number weighting, resident bf16,
+   the device calibration solve, 5 epochs, patience 2. It prints which of
+   pyarrow, pandas, yaml, psutil, pydantic, sklearn and matplotlib import
+   here. Checks: the annotations table carries ``training_set``, no split is
+   empty, 80 classes remain, ``artifact_eval_inputs`` is
+   ``resident(bfloat16)``, export parity <= 1e-6, the four ported metric
+   groups logged their scalars, the logged accuracy equals the registered
+   predictor's argmax accuracy over the resident val rows and lies within
+   0.005 of its accuracy over the f32 val rows on disk, and
+   ``registry_meta.json`` names the run; the phase's environment variables
+   are put back afterwards; then ``models:/<name>`` and
+   ``models:/<name>/v1`` each classify a 25-point 1536x2048 request with one
+   crop and 11 fused launches, within 2e-6 of the registered predictor on
+   ``extract_features``. Times: the run's ``profiled_sections``,
+   ``metrics_group_seconds``, ``resident_timings`` and the phase's wall.
+12. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
    224, 128-patch chunks, on every schedule of ``AB_SCHEDULES``: in bf16 and
    f32 each schedule's ``gate_cosine`` against ``folded`` is >= 0.999;
    ``time_trunk`` patch-features/s of every schedule in bf16 and of
@@ -138,10 +163,12 @@ not added.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 SEED = 0
@@ -234,6 +261,21 @@ def crop_bound(starts, ps: int, bf16: bool, image_hw, pad: int):
     out = len(starts) * ps * ps * 3
     n_bytes = 3 * int(covered.sum()) + out * (2 if bf16 else 4)
     return bound(n_bytes, {"f32": 2.0 * out})
+
+
+@contextmanager
+def restored_env(*names: str):
+    """Put the named environment variables back as they were on exit, so a
+    phase that sets them leaves no trace in the phases after it."""
+    saved = {name: os.environ.get(name) for name in names}
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 def fail(msg: str) -> None:
@@ -1041,6 +1083,304 @@ def phase_trainer(extractor, tmp: Path, smi: str):
         f" {epoch_ms / 1e3:.3f} s by CUDA events ({epoch_s:.3f} s host clock),"
         f" {epoch_ms / n_steps:.4f} ms per step against a bound of {b_ms:.4f}")
     del clf, q
+    torch.cuda.empty_cache()
+
+
+RECIPE_ROOTS, RECIPE_GENERA = 4, 10   # top-level BAs, genera under each
+RECIPE_GFS = ("gf-br", "gf-ma", "gf-en")
+RECIPE_MERMAID_IMAGES, RECIPE_CN_IMAGES, RECIPE_POINTS = 1_200, 200, 25
+RECIPE_CN_SOURCE, RECIPE_UNMAPPED = 7, "99999"
+RECIPE_SUBSAMPLE_SHARE, RECIPE_EPOCHS, RECIPE_PATIENCE = 0.9, 5, 2
+RECIPE_MODEL = "mermaid-recipe-80"
+# Largest gap allowed between the logged accuracy (resident bf16 val rows)
+# and the registered predictor's over the f32 val rows on disk.
+RECIPE_ACC_MARGIN = 0.005
+RECIPE_PACKAGES = ("pyarrow", "pandas", "yaml", "psutil", "pydantic", "sklearn",
+                   "matplotlib")
+
+
+def recipe_taxonomy(fixture_dir: Path):
+    """The fixture taxonomy of the recipe phase: RECIPE_ROOTS top-level BAs
+    with RECIPE_GENERA genera each; every genus with no growth form and
+    with one of RECIPE_GFS is a raw class (80), plus two classes the
+    rollup folds into others (so 80 remain). Returns (raw classes, rollup
+    pairs, CoralNet mapping records)."""
+    records, classes = [], []
+    for r in range(RECIPE_ROOTS):
+        records.append({"id": f"ba-r{r}", "name": f"Category {r}", "parent": None})
+        for g in range(RECIPE_GENERA):
+            ba = f"ba-r{r}-g{g}"
+            records.append({"id": ba, "name": f"Genus {r}.{g}", "parent": f"ba-r{r}"})
+            classes += [(ba, ""), (ba, RECIPE_GFS[(r + g) % len(RECIPE_GFS)])]
+    folded = [("ba-r0-g0", "gf-ma"), ("ba-r1-g1", "gf-br")]
+    rollups = [(folded[0], classes[0]), (folded[1], classes[3])]
+    classes += folded
+    gfs = {"gf-br": "branching", "gf-ma": "massive", "gf-en": "encrusting"}
+    mapping = [
+        {"provider_id": str(1000 + i), "provider_label": f"CN{i}",
+         "benthic_attribute_id": ba,
+         "benthic_attribute_name": next(x["name"] for x in records if x["id"] == ba),
+         "growth_form_id": gf or None, "growth_form_name": gfs.get(gf)}
+        for i, (ba, gf) in enumerate(classes)
+    ]
+    fixture_dir.mkdir(parents=True, exist_ok=True)
+    (fixture_dir / "benthic_attributes.json").write_text(json.dumps(records))
+    (fixture_dir / "growth_forms.json").write_text(json.dumps(gfs))
+    (fixture_dir / "label_mappings.json").write_text(json.dumps(mapping))
+    return classes, rollups, mapping
+
+
+def write_recipe_store(root: Path, bucket: str, classes, mapping):
+    """The recipe's object store and annotation tables: MERMAID-layout and
+    CoralNet-layout feature files of RECIPE_POINTS 4096-d rows each (a
+    class mean plus unit noise, as the train phase draws them), and the
+    two tables as columns. About 1 in 50 CoralNet points carries the
+    unmapped label RECIPE_UNMAPPED. Returns (mermaid columns, manifest
+    columns)."""
+    import numpy as np
+
+    from mermaid_classifier_tpu_torch.data.features_io import write_feature_file
+
+    rng = np.random.default_rng(SEED + 21)
+    dim = 4096
+    means = (rng.standard_normal((len(classes), dim)) * TRAIN_MEAN_STD).astype(np.float32)
+    rowcols = np.stack([np.arange(RECIPE_POINTS) * 53 + 11,
+                        np.arange(RECIPE_POINTS) * 71 + 7], 1).astype(np.int64)
+    mermaid = {k: [] for k in ("image_id", "row", "col", "benthic_attribute_id",
+                               "growth_form_id")}
+    manifest = {k: [] for k in ("source_id", "image_id", "row", "col", "coralnet_id")}
+
+    def features(y):
+        x = rng.standard_normal((RECIPE_POINTS, dim), dtype=np.float32)
+        x += means[y]
+        return x
+
+    for i in range(RECIPE_MERMAID_IMAGES):
+        image_id = f"m{i:05d}"
+        y = rng.integers(0, len(classes), RECIPE_POINTS)
+        write_feature_file(root / bucket / "mermaid" / f"{image_id}.features.npz",
+                           rowcols.astype(np.int32), features(y))
+        for (r, c), k in zip(rowcols, y):
+            ba, gf = classes[k]
+            mermaid["image_id"].append(image_id)
+            mermaid["row"].append(int(r))
+            mermaid["col"].append(int(c))
+            mermaid["benthic_attribute_id"].append(ba)
+            # MERMAID writes the string 'None' for no growth form.
+            mermaid["growth_form_id"].append(gf or "None")
+    for i in range(RECIPE_CN_IMAGES):
+        image_id = 500_000 + i
+        y = rng.integers(0, len(classes), RECIPE_POINTS)
+        write_feature_file(
+            root / bucket / f"s{RECIPE_CN_SOURCE}" / "features"
+            / f"i{image_id}.features.npz", rowcols.astype(np.int32), features(y))
+        for (r, c), k in zip(rowcols, y):
+            manifest["source_id"].append(RECIPE_CN_SOURCE)
+            manifest["image_id"].append(image_id)
+            manifest["row"].append(int(r))
+            manifest["col"].append(int(c))
+            manifest["coralnet_id"].append(
+                RECIPE_UNMAPPED if rng.random() < 0.02 else mapping[k]["provider_id"])
+    return mermaid, manifest
+
+
+def write_recipe_tables(tmp: Path, mermaid: dict, manifest: dict):
+    """The two annotation tables as parquet, the production route (pyarrow
+    imports on the card machine). Returns (mermaid path, manifest path)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    paths = tmp / "mermaid.parquet", tmp / "manifest.parquet"
+    for path, cols in zip(paths, (mermaid, manifest)):
+        pq.write_table(pa.table(cols), str(path))
+    return paths
+
+
+def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
+    """The training recipe through its programmatic entry point,
+    ``TrackingTrainingRunner(...).run()``, at the production head's width
+    (4096 -> (500, 300, 100) -> 80, mini-batch 200, lr 1e-4) on a seeded
+    store, then the registered model served by ``models:/``."""
+    import importlib.util
+    import os
+
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.common import taxonomy
+    from mermaid_classifier_tpu_torch.config.options import (
+        DatasetOptions,
+        TrackingOptions,
+        TrainingOptions,
+    )
+    from mermaid_classifier_tpu_torch.config.settings import override_settings
+    from mermaid_classifier_tpu_torch.data.subsample import SubsampleOptions
+    from mermaid_classifier_tpu_torch.inference import load_predictor
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from mermaid_classifier_tpu_torch.tracking import LocalTracker
+    from mermaid_classifier_tpu_torch.train.class_weights import (
+        SampleWeightingOptions,
+    )
+    from mermaid_classifier_tpu_torch.train.runner import TrackingTrainingRunner
+
+    t0 = time.perf_counter()
+    say("recipe: importable on this machine: " + ", ".join(
+        f"{p} {'yes' if importlib.util.find_spec(p) else 'no'}"
+        for p in RECIPE_PACKAGES))
+    base = tmp / "recipe"
+    classes, rollups, mapping = recipe_taxonomy(base / "taxonomy")
+    os.environ[taxonomy.TAXONOMY_FIXTURE_ENV] = str(base / "taxonomy")
+    taxonomy.get_benthic_attribute_library.cache_clear()
+    taxonomy.get_growth_form_library.cache_clear()
+    taxonomy.get_coralnet_mapping.cache_clear()
+    bucket = "recipe-training"
+    mermaid, manifest = write_recipe_store(base / "store", bucket, classes, mapping)
+    mermaid_path, manifest_path = write_recipe_tables(base, mermaid, manifest)
+    rollup_csv = base / "rollups.csv"
+    rollup_csv.write_text("from_ba_id,from_gf_id,to_ba_id,to_gf_id\n" + "".join(
+        f"{a},{b},{c},{d}\n" for (a, b), (c, d) in rollups))
+    n_rows = len(mermaid["image_id"]) + len(manifest["image_id"])
+    n_unmapped = manifest["coralnet_id"].count(RECIPE_UNMAPPED)
+    os.environ["OBJECT_STORE_ROOT"] = str(base / "store")
+    write_s = time.perf_counter() - t0
+    say(f"recipe: store of {RECIPE_MERMAID_IMAGES} MERMAID + {RECIPE_CN_IMAGES}"
+        f" CoralNet feature files, {n_rows} rows of 4096 ({n_unmapped} with the"
+        f" unmapped label), {len(classes)} raw classes, 2 rolled up; written in"
+        f" {write_s:.1f} s")
+
+    tracker = LocalTracker(base / "tracking")
+    with override_settings(
+        coralnet_train_data_bucket=bucket,
+        mermaid_train_data_bucket=bucket,
+        mermaid_annotations_parquet_pattern=str(mermaid_path),
+        feature_cache_dir=str(base / "feature_cache"),
+        tracking_dir=str(tracker.root),
+    ):
+        runner = TrackingTrainingRunner(
+            DatasetOptions(
+                coralnet_manifest_uri=str(manifest_path),
+                label_rollup_spec_csv=str(rollup_csv),
+                subsample=SubsampleOptions(
+                    strategy="stratified",
+                    total_annotations=int((n_rows - n_unmapped)
+                                          * RECIPE_SUBSAMPLE_SHARE)),
+                weighting=SampleWeightingOptions(enabled=True, weight_ratio_cap=10.0),
+            ),
+            TrainingOptions(epochs=RECIPE_EPOCHS,
+                            early_stopping_patience=RECIPE_PATIENCE,
+                            device_resident=True, resident_dtype="bfloat16",
+                            calibration_backend="device"),
+            tracking_options=TrackingOptions(experiment_name="recipe",
+                                             model_name=RECIPE_MODEL),
+            tracker=tracker,
+            device=device,
+        )
+        t1 = time.perf_counter()
+        msg, registered = runner.run()
+        run_s = time.perf_counter() - t1
+
+        ds = runner.dataset
+        run = tracker.runs("recipe")[-1]
+        params, metrics = run.params(), run.latest_metrics()
+        if "training_set" not in ds.db.columns("annotations"):
+            fail("recipe: the annotations table carries no training_set column")
+        splits = {s: getattr(ds.labels, s).label_count for s in ("train", "ref", "val")}
+        if min(splits.values()) <= 0:
+            fail(f"recipe: an empty split {splits}")
+        if len(ds.labels.ref.classes_set) != 80:
+            fail(f"recipe: {len(ds.labels.ref.classes_set)} classes after the rollup,"
+                 " want 80")
+        if params.get("artifact_eval_inputs") != "resident(bfloat16)":
+            fail(f"recipe: artifact_eval_inputs is"
+                 f" {params.get('artifact_eval_inputs')!r}, want 'resident(bfloat16)'")
+        parity = metrics.get("export_parity_max_abs_diff")
+        if parity is None or not parity <= 1e-6:
+            fail(f"recipe: export parity {parity} (want <= 1e-6)")
+        want = ("balanced_accuracy", "mcc", "precision_macro", "recall_macro",
+                "f1_macro", "log_loss")
+        missing = [m for m in want if m not in metrics]
+        if missing:
+            fail(f"recipe: metric groups logged no {missing}")
+        meta = json.loads((registered / "registry_meta.json").read_text())
+        if meta["run_id"] != run.run_id or meta["name"] != RECIPE_MODEL:
+            fail(f"recipe: registry_meta.json {meta} does not name run {run.run_id}")
+
+        # The registered predictor over the val rows on the card: the rows
+        # the trainer evaluated (its bf16 resident rows, one gather), and
+        # the f32 rows on disk.
+        predictor = load_predictor(registered, device=device)
+        classes_arr = np.asarray(predictor.classes_)
+        res = runner._trainer.resident_artifact_val_proba(
+            runner._clf_calibrated.estimator, ds.labels.val,
+            predictor.head_params.as_tensors(device))
+        proba_res, gt = res
+        acc_res = float(np.mean(classes_arr[proba_res.argmax(1)] == np.asarray(gt)))
+        x_val, y_val = ds.labels.val.load_all()
+        proba_disk = predictor.predict_proba(x_val)
+        acc_disk = float(np.mean(classes_arr[proba_disk.argmax(1)] == np.asarray(y_val)))
+        if round(acc_res, 4) != metrics["accuracy"]:
+            fail(f"recipe: logged accuracy {metrics['accuracy']} but the registered"
+                 f" predictor's argmax accuracy over the resident val rows is"
+                 f" {acc_res}")
+        # The same predictor over the f32 rows read from disk, a route
+        # independent of the resident gather: bf16 against f32 rows may flip
+        # a few rows near a class boundary, not more than RECIPE_ACC_MARGIN.
+        if not abs(acc_disk - metrics["accuracy"]) <= RECIPE_ACC_MARGIN:
+            fail(f"recipe: logged accuracy {metrics['accuracy']} but the registered"
+                 f" predictor's argmax accuracy over the f32 disk rows is"
+                 f" {acc_disk} (want within {RECIPE_ACC_MARGIN})")
+
+        # models:/ serving through the crop and fused kernels.
+        rng = np.random.default_rng(SEED + 22)
+        h, w = IMAGE_HW
+        served = []
+        for i, spec in enumerate((f"models:/{RECIPE_MODEL}",
+                                  f"models:/{RECIPE_MODEL}/v1")):
+            image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+            pts = points(rng, 25)
+            csv_path = base / f"serve_{i}.csv"
+            write_points(csv_path, pts)
+            ann = AnnotationRun(image, csv_path, spec, extractor=extractor)
+            patch_crop.launches = 0
+            fused_mbconv.launches = 0
+            ann.run()
+            launches = (patch_crop.launches, fused_mbconv.launches)
+            torch.cuda.synchronize()
+            if launches != (1, 11):
+                fail(f"recipe: {spec} launched (crop, fused) {launches}, want (1, 11)")
+            check_run(ann, 25, list(predictor.classes_), ann.top_n)
+            feats = extractor.extract_features(image, np.asarray(pts, np.int32))
+            diff = float(np.abs(ann.proba - predictor.predict_proba(feats)).max())
+            if not diff <= 2e-6:
+                fail(f"recipe: {spec} scores {diff:.3e} from the registered"
+                     " predictor on extract_features (want <= 2e-6)")
+            served.append((spec, launches, diff))
+    wall = time.perf_counter() - t0
+
+    say(f"recipe: TrackingTrainingRunner.run() {run_s:.1f} s; splits {splits};"
+        f" {len(ds.labels.ref.classes_set)} classes; epochs run"
+        f" {len(msg.ref_accs)}; accuracy {metrics['accuracy']} (registered"
+        f" predictor over the resident bf16 val rows {acc_res:.4f}, over the f32"
+        f" disk rows {acc_disk:.4f}, within {RECIPE_ACC_MARGIN}); export parity {parity:.3e} (<= 1e-6);"
+        f" balanced_accuracy {metrics['balanced_accuracy']}, mcc {metrics['mcc']},"
+        f" f1_macro {metrics['f1_macro']}, log_loss {metrics['log_loss']:.4f};"
+        f" artifact_eval_inputs {params['artifact_eval_inputs']}; registered"
+        f" {registered.parent.name}/{registered.name} for run {run.run_id}")
+    for spec, launches, diff in served:
+        say(f"recipe: {spec} served 25 points, launches crop={launches[0]}"
+            f" fused={launches[1]}, max |dp| vs the registered predictor on"
+            f" extract_features {diff:.3e} (<= 2e-6)")
+    say(f"time recipe on {smi}: profiled_sections (s): " + ", ".join(
+        f"{s['name']} {s['seconds']}" for s in runner.profiled_sections))
+    say(f"time recipe on {smi}: metrics_group_seconds: "
+        + json.dumps(json.loads(run.artifact("metrics_group_seconds.json").read_text())))
+    say(f"time recipe on {smi}: resident_timings: "
+        + json.dumps(runner._resident_timings))
+    say(f"time recipe on {smi}: phase wall {wall:.1f} s (store and tables"
+        f" {write_s:.1f} s, runner {run_s:.1f} s)")
+    runner.dataset.cleanup()
+    del runner, predictor
     torch.cuda.empty_cache()
 
 
@@ -2003,6 +2343,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
+    from mermaid_classifier_tpu_torch.common.taxonomy import TAXONOMY_FIXTURE_ENV
     from mermaid_classifier_tpu_torch.models.efficientnet import EfficientNetConfig
     from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
 
@@ -2026,9 +2367,12 @@ def main() -> None:
         # replays, later profiles in the process read device times below
         # the kernels' bounds (PERF.md, the training lane).
         trunk_rates = phase_times(config, folded, results, extractor, run25, smi)
-        phase_bucket(variables, config, Path(tmp), smi, trunk_rates)
+        with restored_env("OBJECT_STORE_ROOT"):
+            phase_bucket(variables, config, Path(tmp), smi, trunk_rates)
         phase_train(extractor, Path(tmp), smi)
         phase_trainer(extractor, Path(tmp), smi)
+        with restored_env("OBJECT_STORE_ROOT", TAXONOMY_FIXTURE_ENV):
+            phase_recipe(extractor, Path(tmp), smi)
         phase_trunk_ab(variables, config, results)
 
     sources = {

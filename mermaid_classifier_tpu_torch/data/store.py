@@ -8,9 +8,10 @@ the two disciplines that make the at-scale extraction resumable:
 - writes are atomic (temp + rename) and idempotent at (bucket, key);
 - the bucket listing is the source of truth for progress.
 
-``get_default_store`` reads ``OBJECT_STORE_ROOT`` from the environment
-itself (the JAX package reads it through its pydantic settings). The S3
-backend (``s3_store``) is not ported: an ``s3://`` root raises.
+``get_default_store`` takes its root from ``OBJECT_STORE_ROOT`` in the
+environment at call time, else from ``settings.object_store_root`` (which
+also covers a ``.env`` file and ``override_settings``). The S3 backend
+(``s3_store``) is not ported: an ``s3://`` root raises.
 """
 
 from __future__ import annotations
@@ -146,12 +147,16 @@ class LocalFSObjectStore(ObjectStore):
 
 
 def get_default_store() -> ObjectStore:
-    """The store named by ``OBJECT_STORE_ROOT``: a local-FS root. An
+    """The store named by ``OBJECT_STORE_ROOT`` (the environment at call
+    time, else ``settings.object_store_root``): a local-FS root. An
     ``s3://`` root raises, because the S3 backend is not in this package."""
-    root = os.environ.get("OBJECT_STORE_ROOT")
+    from mermaid_classifier_tpu_torch.config.settings import settings
+
+    root = os.environ.get("OBJECT_STORE_ROOT") or settings.object_store_root
     if not root:
         raise ObjectStoreError(
-            "OBJECT_STORE_ROOT is not set; set it or inject an ObjectStore"
+            "OBJECT_STORE_ROOT is not set (environment, .env or"
+            " settings.object_store_root); set it or inject an ObjectStore"
             " explicitly."
         )
     if root.startswith("s3://"):

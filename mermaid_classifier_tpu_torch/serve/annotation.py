@@ -1,7 +1,8 @@
 """Single-image classify: the serve-shape forward pass.
 
 Port of ``mermaid_classifier_tpu/serve/annotation.py``: resolve a classifier
-artifact from a local directory or an object-store prefix, extract features
+artifact from a local directory, the tracker's model registry or an
+object-store prefix, extract features
 for the image's annotated points through the cached backbone, classify every
 point in ONE batched predict_proba call, rank top-N and write them back to
 the points CSV.
@@ -9,9 +10,8 @@ the points CSV.
 The points file is read with the stdlib ``csv`` module. The image is a
 decoded (H, W, 3) uint8 array or a spec resolved by the injectable
 ``ImageFetcher`` (``serve/image_sources.py``): a local path, a
-``store://`` URI or a CoralNet image ID. The registry spec (``models:/``)
-needs the tracker (``tracking/``), which this package does not have yet;
-the marker overlay (``show()``) is not ported.
+``store://`` URI or a CoralNet image ID. The marker overlay (``show()``) is
+not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ _COL_ALIASES = ("col", "Col", "COL", "column", "Column")
 def resolve_classifier_artifact(
     spec: str | Path,
     *,
+    tracker_root: str | Path | None = None,
     store=None,
     cache_dir: str | Path | None = None,
 ) -> Path:
@@ -42,17 +43,38 @@ def resolve_classifier_artifact(
 
     Accepted forms:
     - a local directory path;
+    - ``models:/<name>`` or ``models:/<name>/v<N>``: the tracker's model
+      registry (``tracker_root``, else ``settings.tracking_dir``), the
+      latest version when no v<N> is given;
     - ``store://<bucket>/<prefix>``: an object-store directory, downloaded
       into ``cache_dir`` (a new temporary directory when None).
-    ``models:/`` raises: the registry needs ``tracking/``.
     """
     spec = str(spec)
     if spec.startswith("models:/"):
-        raise ValueError(
-            f"classifier spec {spec!r}: the model registry (models:/) needs"
-            " tracking/, which this package does not have yet; give a local"
-            " artifact directory or a store://bucket/prefix"
+        from mermaid_classifier_tpu_torch.tracking.local_tracker import (
+            LocalTracker,
+            get_default_tracker,
         )
+
+        tracker = (
+            LocalTracker(tracker_root) if tracker_root else get_default_tracker()
+        )
+        parts = spec[len("models:/"):].strip("/").split("/")
+        name = parts[0]
+        if len(parts) > 1:
+            version_dir = tracker.model_version(name, parts[1])
+            if version_dir is None:
+                raise FileNotFoundError(
+                    f"registered model {name!r} has no version {parts[1]!r}"
+                    f" under {tracker.root}."
+                )
+        else:
+            version_dir = tracker.latest_model_version(name)
+            if version_dir is None:
+                raise FileNotFoundError(
+                    f"no registered model named {name!r} under {tracker.root}."
+                )
+        return _validated_artifact_dir(version_dir)
     if spec.startswith("store://"):
         if store is None:
             from mermaid_classifier_tpu_torch.data.store import get_default_store
@@ -143,6 +165,7 @@ class AnnotationRun:
         *,
         extractor,
         top_n: int = 3,
+        tracker_root: str | Path | None = None,
         fetcher=None,
     ) -> None:
         self.image_spec = image
@@ -153,7 +176,7 @@ class AnnotationRun:
             self.predictor = classifier
         else:
             self.predictor = load_predictor(
-                resolve_classifier_artifact(classifier),
+                resolve_classifier_artifact(classifier, tracker_root=tracker_root),
                 device=extractor.device,
             )
         self.extractor = extractor

@@ -4,7 +4,7 @@ artifact: the predictions written back into the points CSV agree (scores
 within 1e-4, the slice bound of tests/test_torch_annotation.py; labels
 wherever neighbouring scores are more than 1e-4 apart). Then the port's
 report directory, the ``store://`` image and artifact specs, and the
-``models:/`` error."""
+``models:/`` registry spec."""
 
 import csv
 import importlib.util
@@ -164,6 +164,23 @@ def test_resolve_store_spec_into_cache_dir(inputs, tmp_path):
                                          cache_dir=tmp_path / "c2")
 
 
-def test_registry_spec_names_tracking():
-    with pytest.raises(ValueError, match="tracking/"):
-        tann.resolve_classifier_artifact("models:/reef-model/v3")
+def test_registry_spec_names_tracking(tmp_path, inputs):
+    """``models:/`` resolves through the tracker's registry: without a
+    tracking root it raises naming the setting, and an unknown version
+    raises naming the registry root."""
+    from mermaid_classifier_tpu_torch.config.settings import override_settings
+    from mermaid_classifier_tpu_torch.tracking import LocalTracker
+
+    with override_settings(tracking_dir=None):
+        with pytest.raises(ValueError, match="tracking_dir"):
+            tann.resolve_classifier_artifact("models:/reef-model/v3")
+    artifact = inputs[2]
+    tracker = LocalTracker(tmp_path / "tracking")
+    tracker.register_model(
+        "reef-model", [artifact / "model.npz", artifact / "model.json"])
+    with pytest.raises(FileNotFoundError, match="no version 'v3'"):
+        tann.resolve_classifier_artifact(
+            "models:/reef-model/v3", tracker_root=tracker.root)
+    got = tann.resolve_classifier_artifact(
+        "models:/reef-model", tracker_root=tracker.root)
+    assert got == tracker.root / "_models" / "reef-model" / "v1"

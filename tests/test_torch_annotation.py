@@ -191,8 +191,9 @@ def test_resolve_classifier_artifact(tmp_path, artifact):
     (tmp_path / "half" / "model.npz").write_bytes(b"")
     with pytest.raises(FileNotFoundError, match="missing model.json"):
         tann.resolve_classifier_artifact(tmp_path / "half")
-    with pytest.raises(ValueError, match="local artifact"):
-        tann.resolve_classifier_artifact("models:/reef-model")
+    with pytest.raises(FileNotFoundError, match="no registered model"):
+        tann.resolve_classifier_artifact("models:/reef-model",
+                                         tracker_root=tmp_path / "tracking")
 
 
 def test_feature_dim_mismatch_raises(image_and_points, artifact):

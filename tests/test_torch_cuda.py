@@ -767,3 +767,107 @@ def test_readback_waits_for_its_own_image_only(cuda):
     assert not torch.cuda.current_stream(cuda).query()  # the stream still runs
     np.testing.assert_array_equal(got_a, want[0])
     np.testing.assert_array_equal(b.wait(), want[1])
+
+
+def _recipe_store(root, rng, classes, dim, images=60, pts=20):
+    """A small seeded recipe environment with no parquet: MERMAID-layout
+    feature files (a class mean plus noise) and the annotation table as an
+    .npz of columns."""
+    from mermaid_classifier_tpu_torch.data.features_io import write_feature_file
+
+    means = rng.standard_normal((len(classes), dim)).astype(np.float32)
+    rowcols = np.stack([np.arange(pts) * 3, np.arange(pts) * 7], 1).astype(np.int32)
+    cols = {k: [] for k in ("image_id", "row", "col", "benthic_attribute_id",
+                            "growth_form_id")}
+    for i in range(images):
+        y = rng.integers(0, len(classes), pts)
+        x = rng.standard_normal((pts, dim)).astype(np.float32) * 0.3 + means[y]
+        write_feature_file(root / "store" / "b" / "mermaid" / f"m{i:03d}.features.npz",
+                           rowcols, x)
+        for (r, c), k in zip(rowcols, y):
+            cols["image_id"].append(f"m{i:03d}")
+            cols["row"].append(int(r))
+            cols["col"].append(int(c))
+            cols["benthic_attribute_id"].append(classes[k])
+            cols["growth_form_id"].append("None")
+    np.savez(root / "mermaid.npz", **{k: np.asarray(v) for k, v in cols.items()})
+
+
+def test_recipe_runner_on_cuda_serves_models_spec(cuda, tmp_path, monkeypatch):
+    """TrackingTrainingRunner on the card, resident bf16: the artifact eval
+    takes the resident gather (``artifact_eval_inputs``), the export gate
+    passes, the four ported metric groups log, and the registered version
+    serves through ``models:/`` with the crop and fused kernels launched as
+    for a local predictor, at the same probabilities."""
+    import json
+
+    from mermaid_classifier_tpu_torch.common import relational, taxonomy
+    from mermaid_classifier_tpu_torch.config.options import (
+        DatasetOptions,
+        TrackingOptions,
+        TrainingOptions,
+    )
+    from mermaid_classifier_tpu_torch.config.settings import override_settings
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+    from mermaid_classifier_tpu_torch.inference import load_predictor
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from mermaid_classifier_tpu_torch.tracking import LocalTracker
+    from mermaid_classifier_tpu_torch.train.runner import TrackingTrainingRunner
+
+    config = CONFIGS["b0_60px"]
+    rng = np.random.default_rng(5)
+    roots = [{"id": f"root{r}", "name": f"Root {r}", "parent": None} for r in range(2)]
+    genera = [{"id": f"ba{i}", "name": f"Genus {i}", "parent": f"root{i % 2}"}
+              for i in range(6)]
+    fixture = tmp_path / "taxonomy"
+    fixture.mkdir()
+    (fixture / "benthic_attributes.json").write_text(json.dumps(roots + genera))
+    (fixture / "growth_forms.json").write_text("{}")
+    (fixture / "label_mappings.json").write_text("[]")
+    monkeypatch.setenv(taxonomy.TAXONOMY_FIXTURE_ENV, str(fixture))
+    taxonomy.get_benthic_attribute_library.cache_clear()
+    taxonomy.get_growth_form_library.cache_clear()
+    _recipe_store(tmp_path, rng, [g["id"] for g in genera], config.feature_dim)
+
+    def read_npz(path):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k].tolist() for k in z.files}
+
+    monkeypatch.setattr(relational, "read_parquet_columns", read_npz)
+    tracker = LocalTracker(tmp_path / "tracking")
+    with override_settings(mermaid_train_data_bucket="b",
+                           mermaid_annotations_parquet_pattern=str(tmp_path / "mermaid.npz"),
+                           feature_cache_dir=str(tmp_path / "cache"), batch_size=500):
+        runner = TrackingTrainingRunner(
+            DatasetOptions(),
+            TrainingOptions(epochs=3, early_stopping_patience=2, device_resident=True,
+                            resident_dtype="bfloat16", calibration_backend="device"),
+            tracking_options=TrackingOptions(experiment_name="e", model_name="card"),
+            tracker=tracker, store=LocalFSObjectStore(tmp_path / "store"), device=cuda)
+        _, registered = runner.run()
+    run = tracker.runs("e")[-1]
+    assert run.params()["artifact_eval_inputs"] == "resident(bfloat16)"
+    metrics = run.latest_metrics()
+    assert metrics["export_parity_max_abs_diff"] <= 1e-6
+    for name in ("balanced_accuracy", "mcc", "precision_macro", "recall_macro",
+                 "f1_macro", "log_loss", "accuracy"):
+        assert name in metrics
+    assert registered.name == "v1"
+
+    extractor = build_extractor(_perturbed_variables(config, rng), config, device=cuda)
+    image = rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)
+    points = tmp_path / "points.csv"
+    points.write_text("row,col\n" + "".join(f"{r},{c}\n" for r, c in
+                                            zip(range(0, 240, 12), range(0, 320, 16))))
+    runs = []
+    for classifier in (load_predictor(registered, device=cuda), "models:/card"):
+        ann = AnnotationRun(image, points, classifier, extractor=extractor,
+                            tracker_root=tracker.root)
+        patch_crop.launches = 0
+        fm.launches = 0
+        ann.run()
+        torch.cuda.synchronize()
+        runs.append((ann.proba, patch_crop.launches, fm.launches))
+    (p0, c0, f0), (p1, c1, f1) = runs
+    assert (c1, f1) == (c0, f0) and c0 == 1 and f0 > 0
+    np.testing.assert_array_equal(p1, p0)

@@ -1,7 +1,8 @@
 """Import and no-fallback guards of the PyTorch port.
 
 Every module of ``mermaid_classifier_tpu_torch`` imports without jax, flax,
-optax, sklearn, pandas, PIL, ml_dtypes or any module of the JAX package
+optax, sklearn, pandas, PIL, ml_dtypes, pyarrow, yaml, psutil, pydantic,
+matplotlib or any module of the JAX package
 ``mermaid_classifier_tpu`` (checked in a fresh interpreter: the test process
 has jax loaded by tests/conftest.py), and ``chip_smoke.py`` refuses to run —
 exit code non-zero, no ``"ok": true`` — where there is no CUDA card or no
@@ -17,6 +18,7 @@ REPO = Path(__file__).resolve().parents[1]
 # The top-level name of each module: "mermaid_classifier_tpu_torch" is its
 # own name, not the JAX package's.
 FORBIDDEN = ("jax", "flax", "optax", "sklearn", "pandas", "PIL", "ml_dtypes",
+             "pyarrow", "yaml", "psutil", "pydantic", "matplotlib",
              "mermaid_classifier_tpu")
 
 _IMPORT_ALL = f"""
@@ -43,7 +45,7 @@ def test_port_imports_no_jax_pandas_or_pil():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 34
+    assert int(n_modules) >= 60
     assert bad.strip() == "[]", bad
 
 

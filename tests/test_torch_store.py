@@ -1,14 +1,18 @@
 """The port's object store against the JAX package's: the same operations
 (those of tests/data/test_store.py) on a ``LocalFSObjectStore`` of each
 package give the same results and the same errors. Also the port's
-``get_default_store`` from ``OBJECT_STORE_ROOT`` and its ``s3://`` error."""
+``get_default_store`` from ``OBJECT_STORE_ROOT`` in the environment, from
+the settings (a ``.env`` file or ``override_settings``) as the JAX one
+reads it, and its ``s3://`` error."""
 
 import os
 import stat
 
 import pytest
 
+from mermaid_classifier_tpu.config import settings as jset
 from mermaid_classifier_tpu.data import store as jstore
+from mermaid_classifier_tpu_torch.config import settings as tset
 from mermaid_classifier_tpu_torch.data import store as tstore
 
 
@@ -136,10 +140,45 @@ def test_default_store_from_environment(tmp_path, monkeypatch):
     assert (tmp_path / "root" / "b" / "k").read_bytes() == b"x"
 
 
+@pytest.mark.parametrize("route", ["env_file", "override"])
+def test_default_store_from_settings_matches_jax(tmp_path, monkeypatch, route):
+    """With no OBJECT_STORE_ROOT in the environment, both packages take the
+    root from their settings: a ``.env`` file re-read in place, or
+    ``override_settings``. Each store reads what the other wrote."""
+    monkeypatch.delenv("OBJECT_STORE_ROOT", raising=False)
+    root = tmp_path / "root"
+    saved = {mod: {n: getattr(mod.settings, n) for n in names}
+             for mod, names in ((jset, list(jset.Settings.model_fields)),
+                                (tset, tset.Settings.field_names()))}
+    try:
+        if route == "env_file":
+            monkeypatch.chdir(tmp_path)
+            (tmp_path / ".env").write_text(f"OBJECT_STORE_ROOT={root}\n")
+            jset.reload_settings_from_env()
+            tset.reload_settings_from_env()
+            got = (jstore.get_default_store(), tstore.get_default_store())
+        else:
+            with jset.override_settings(object_store_root=str(root)), \
+                    tset.override_settings(object_store_root=str(root)):
+                got = (jstore.get_default_store(), tstore.get_default_store())
+    finally:
+        for mod, values in saved.items():
+            for name, value in values.items():
+                setattr(mod.settings, name, value)
+    jdefault, tdefault = got
+    assert isinstance(tdefault, tstore.LocalFSObjectStore)
+    assert tdefault.root == jdefault.root == root
+    jdefault.put_bytes("b", "from_jax", b"j")
+    tdefault.put_bytes("b", "from_port", b"t")
+    assert tdefault.get_bytes("b", "from_jax") == b"j"
+    assert jdefault.get_bytes("b", "from_port") == b"t"
+
+
 def test_default_store_unset_and_s3_raise(monkeypatch):
     monkeypatch.delenv("OBJECT_STORE_ROOT", raising=False)
-    with pytest.raises(tstore.ObjectStoreError, match="OBJECT_STORE_ROOT"):
-        tstore.get_default_store()
+    with tset.override_settings(object_store_root=None):
+        with pytest.raises(tstore.ObjectStoreError, match="OBJECT_STORE_ROOT"):
+            tstore.get_default_store()
     monkeypatch.setenv("OBJECT_STORE_ROOT", "s3://reef-bucket")
     with pytest.raises(tstore.ObjectStoreError, match="s3_store"):
         tstore.get_default_store()
