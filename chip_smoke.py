@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serve path, its bulk extraction lane, its
 head-training lane, its trainer, its training recipe (ETL -> resident train
--> gated export -> metrics -> registry -> ``models:/`` serve) and its
+-> gated export -> nine metric groups -> registry -> ``models:/`` serve,
+programmatically and through the ``classifier_train`` YAML CLI) and its
 full-trunk A/B harness on one CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
@@ -117,7 +118,7 @@ Phases, one output line each:
 11. recipe — the training recipe through its programmatic entry point,
    ``TrackingTrainingRunner(...).run()``, at the production head's width
    (4096 -> (500, 300, 100) -> 80, mini-batch 200, lr 1e-4) on a seeded
-   local store named by ``OBJECT_STORE_ROOT``: 1,200 MERMAID-layout and 200
+   local store (``settings.object_store_root``): 1,200 MERMAID-layout and 200
    CoralNet-layout feature files of 25 points (a class mean plus unit noise,
    35,000 rows of 4096), the taxonomy through ``TAXONOMY_FIXTURE_ENV``
    (82 BA x GF classes under 4 top-level BAs, a rollup CSV folding 2 of
@@ -127,8 +128,8 @@ Phases, one output line each:
    pyarrow, pandas, yaml, psutil, pydantic, sklearn and matplotlib import
    here. Checks: the annotations table carries ``training_set``, no split is
    empty, 80 classes remain, ``artifact_eval_inputs`` is
-   ``resident(bfloat16)``, export parity <= 1e-6, the four ported metric
-   groups logged their scalars, the logged accuracy equals the registered
+   ``resident(bfloat16)``, export parity <= 1e-6, the metric groups logged
+   their classification scalars, the logged accuracy equals the registered
    predictor's argmax accuracy over the resident val rows and lies within
    0.005 of its accuracy over the f32 val rows on disk, and
    ``registry_meta.json`` names the run; the phase's environment variables
@@ -137,6 +138,21 @@ Phases, one output line each:
    crop and 11 fused launches, within 2e-6 of the registered predictor on
    ``extract_features``. Times: the run's ``profiled_sections``,
    ``metrics_group_seconds``, ``resident_timings`` and the phase's wall.
+   Then the same recipe as a user runs it: a YAML directory
+   (``training_config.yaml`` whose ``env:`` block names the store, buckets,
+   annotation table, taxonomy, feature cache and tracking dir, and
+   ``rollups.csv`` beside it) through ``python -m
+   mermaid_classifier_tpu_torch.scripts.classifier_train --config-dir`` in
+   a subprocess, read back from the tracking dir: exit 0, all nine groups
+   in ``metrics_group_seconds`` with the scalars the JAX groups emit and no
+   group failure in the CLI's log, every figure the groups draw for these
+   inputs (read off the run's tables) either written or named in
+   ``figures_not_written`` (the card machine has no matplotlib), parity <=
+   1e-6, accuracy within 0.005 of the programmatic run's, the registered
+   model served by ``models:/`` with one crop and 11 fused launches within
+   2e-6 of its predictor; and ``train_job_entrypoint`` on a config with an
+   unknown key prints ``==== FAIL load_config`` and exits 1. Times: the
+   CLI run's wall, ``profiled_sections`` and ``metrics_group_seconds``.
 12. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
    224, 128-patch chunks, on every schedule of ``AB_SCHEDULES``: in bf16 and
    f32 each schedule's ``gate_cosine`` against ``folded`` is >= 0.999;
@@ -276,6 +292,17 @@ def restored_env(*names: str):
                 os.environ.pop(name, None)
             else:
                 os.environ[name] = value
+
+
+@contextmanager
+def restored_settings(*names: str):
+    """Put the named fields of the port's settings back as they were on
+    exit (the store root is a setting: ``get_default_store`` reads
+    ``settings.object_store_root`` only)."""
+    from mermaid_classifier_tpu_torch.config.settings import override_settings, settings
+
+    with override_settings(**{name: getattr(settings, name) for name in names}):
+        yield
 
 
 def fail(msg: str) -> None:
@@ -1242,7 +1269,6 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
         f"{a},{b},{c},{d}\n" for (a, b), (c, d) in rollups))
     n_rows = len(mermaid["image_id"]) + len(manifest["image_id"])
     n_unmapped = manifest["coralnet_id"].count(RECIPE_UNMAPPED)
-    os.environ["OBJECT_STORE_ROOT"] = str(base / "store")
     write_s = time.perf_counter() - t0
     say(f"recipe: store of {RECIPE_MERMAID_IMAGES} MERMAID + {RECIPE_CN_IMAGES}"
         f" CoralNet feature files, {n_rows} rows of 4096 ({n_unmapped} with the"
@@ -1251,6 +1277,7 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
 
     tracker = LocalTracker(base / "tracking")
     with override_settings(
+        object_store_root=str(base / "store"),
         coralnet_train_data_bucket=bucket,
         mermaid_train_data_bucket=bucket,
         mermaid_annotations_parquet_pattern=str(mermaid_path),
@@ -1356,7 +1383,6 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
                 fail(f"recipe: {spec} scores {diff:.3e} from the registered"
                      " predictor on extract_features (want <= 2e-6)")
             served.append((spec, launches, diff))
-    wall = time.perf_counter() - t0
 
     say(f"recipe: TrackingTrainingRunner.run() {run_s:.1f} s; splits {splits};"
         f" {len(ds.labels.ref.classes_set)} classes; epochs run"
@@ -1377,11 +1403,239 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
         + json.dumps(json.loads(run.artifact("metrics_group_seconds.json").read_text())))
     say(f"time recipe on {smi}: resident_timings: "
         + json.dumps(runner._resident_timings))
-    say(f"time recipe on {smi}: phase wall {wall:.1f} s (store and tables"
-        f" {write_s:.1f} s, runner {run_s:.1f} s)")
     runner.dataset.cleanup()
     del runner, predictor
     torch.cuda.empty_cache()
+
+    cli_s = recipe_cli(extractor, base, smi, metrics["accuracy"], {
+        "coralnet_manifest_uri": manifest_path, "rollups": rollup_csv,
+        "total_annotations": int((n_rows - n_unmapped) * RECIPE_SUBSAMPLE_SHARE),
+        "OBJECT_STORE_ROOT": base / "store", "CORALNET_TRAIN_DATA_BUCKET": bucket,
+        "MERMAID_TRAIN_DATA_BUCKET": bucket,
+        "MERMAID_ANNOTATIONS_PARQUET_PATTERN": mermaid_path,
+        taxonomy.TAXONOMY_FIXTURE_ENV: base / "taxonomy",
+        "FEATURE_CACHE_DIR": base / "feature_cache_cli",
+        "TRACKING_DIR": tracker.root})
+    wall = time.perf_counter() - t0
+    say(f"time recipe on {smi}: phase wall {wall:.1f} s (store and tables"
+        f" {write_s:.1f} s, runner {run_s:.1f} s, CLI run and entrypoint"
+        f" {cli_s:.1f} s)")
+
+
+# Figures each metric group draws, in log order, with the table that says
+# whether it draws it for a run's inputs: None (always), "rows" (the table
+# has rows), "rows>1", or "cover" (a class above 0.5% mean cover).
+RECIPE_FIGURES = (
+    ("confusion_matrix/frequencies.png", None, None),
+    ("confusion_matrix/percents.png", None, None),
+    ("taxonomic/error_attribution.png", "taxonomic/error_attribution.csv", "rows"),
+    ("taxonomic/top_level_confusion.png", None, None),
+    ("taxonomic/gf_confusion.png", "taxonomic/gf_precision_recall_f1.csv", "rows"),
+    ("calibration/reliability_diagram.png", None, None),
+    ("cover/per_class_bias.png", "cover/per_class_cover_metrics.csv", "cover"),
+    ("per_source/accuracy_by_source.png", "per_source/metrics.csv", "rows>1"),
+    ("probability/per_category_log_loss.png",
+     "probability/per_category_log_loss.csv", "rows"),
+    ("ranking/per_category_topk.png", "ranking/per_category_topk.csv", "rows"),
+)
+# The scalars each of the nine groups logs (confusion_matrices logs tables
+# only), as the JAX groups emit them.
+RECIPE_GROUP_SCALARS = {
+    "confusion_matrices": (),
+    "precision_recall_f1": ("precision_macro", "recall_macro", "f1_macro"),
+    "balanced_accuracy_mcc": ("balanced_accuracy", "mcc"),
+    "taxonomic": ("cross_branch_error_rate", "within_branch_error_rate",
+                  "gf_accuracy_gf_relevant", "within_ba_gf_accuracy"),
+    "calibration": ("ece",),
+    "cover": ("cover_mean_abs_bias_pct", "cover_mean_rmse_pct", "cover_mean_mae_pct",
+              "cover_median_r_squared"),
+    "per_source": ("per_source/n_sources", "per_source/min_accuracy",
+                   "per_source/max_accuracy"),
+    "probability": ("log_loss",),
+    "ranking": ("top_1_accuracy", "top_3_accuracy", "top_5_accuracy",
+                "top_10_accuracy", "mrr", "hierarchical_top_5_mean_similarity"),
+}
+RECIPE_CLI_MODEL = "mermaid-recipe-80-cli"
+
+
+def expected_figures(run) -> list[str]:
+    """The figures the nine groups draw for this run's inputs, read off the
+    run's tables (RECIPE_FIGURES)."""
+    import csv
+
+    out = []
+    for figure, table, rule in RECIPE_FIGURES:
+        if table is not None:
+            path = run.artifact(table)
+            rows = list(csv.DictReader(path.open())) if path.is_file() else []
+            if rule == "cover":
+                drawn = any(float(r["mean_true_cover_pct"]) > 0.5 for r in rows)
+            else:
+                drawn = len(rows) > (1 if rule == "rows>1" else 0)
+            if not drawn:
+                continue
+        out.append(figure)
+    return out
+
+
+def recipe_cli(extractor, base: Path, smi: str, programmatic_acc: float, cfg: dict):
+    """The recipe as a user runs it: ``classifier_train --config-dir`` on a
+    YAML directory (``training_config.yaml`` with an ``env:`` block, and
+    ``rollups.csv`` beside it) in a subprocess, at the programmatic run's
+    width, data and subsample; the run read back from the tracking dir and
+    its registered model served by ``models:/``. Then
+    ``train_job_entrypoint`` on a config with an unknown key. Returns the
+    seconds taken."""
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.inference import load_predictor
+    from mermaid_classifier_tpu_torch.metrics import REPORT_ORDER
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from mermaid_classifier_tpu_torch.tracking import LocalTracker
+
+    t0 = time.perf_counter()
+    config_dir = base / "cli_config"
+    config_dir.mkdir()
+    (config_dir / "rollups.csv").write_text(Path(cfg.pop("rollups")).read_text())
+    manifest = cfg.pop("coralnet_manifest_uri")
+    total = cfg.pop("total_annotations")
+    (config_dir / "training_config.yaml").write_text(
+        "dataset:\n"
+        f"  coralnet_manifest_uri: '{manifest}'\n"
+        "  label_rollup_spec_csv: rollups.csv\n"
+        f"  subsample: {{strategy: stratified, total_annotations: {total}}}\n"
+        "  weighting: {enabled: true, weight_ratio_cap: 10.0}\n"
+        "training:\n"
+        f"  epochs: {RECIPE_EPOCHS}\n"
+        f"  early_stopping_patience: {RECIPE_PATIENCE}\n"
+        "  device_resident: true\n"
+        "  resident_dtype: bfloat16\n"
+        "  calibration_backend: device\n"
+        "tracking:\n"
+        "  experiment_name: recipe-cli\n"
+        f"  model_name: {RECIPE_CLI_MODEL}\n"
+        "env:\n" + "".join(f"  {k}: '{v}'\n" for k, v in cfg.items()))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parent), env.get("PYTHONPATH")) if p)
+    argv = [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.classifier_train",
+            "--config-dir", str(config_dir), "--run-name", "cli"]
+    t1 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=base, env=env, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        fail(f"recipe cli: classifier_train exited {proc.returncode}")
+    if "Metric group" in proc.stdout + proc.stderr:
+        print(proc.stderr[-8000:], file=sys.stderr)
+        fail("recipe cli: a metric group failed (its warning is in the CLI's log)")
+
+    tracker = LocalTracker(cfg["TRACKING_DIR"])
+    run = tracker.runs("recipe-cli")[-1]
+    metrics, params = run.latest_metrics(), run.params()
+    seconds = json.loads(run.artifact("metrics_group_seconds.json").read_text())
+    if list(seconds) != list(REPORT_ORDER):
+        fail(f"recipe cli: metrics_group_seconds names {list(seconds)}, want all"
+             f" nine groups {list(REPORT_ORDER)}")
+    missing = {g: [m for m in names if m not in metrics]
+               for g, names in RECIPE_GROUP_SCALARS.items()}
+    missing = {g: m for g, m in missing.items() if m}
+    if missing:
+        fail(f"recipe cli: groups logged no {missing}")
+    for table in ("confusion_matrix/frequencies.csv", "confusion_matrix/percents.csv"):
+        if not run.artifact(table).is_file():
+            fail(f"recipe cli: confusion_matrices wrote no {table}")
+    want_figs = expected_figures(run)
+    pngs = [p for p in run.list_artifacts() if p.endswith(".png")]
+    named = params.get("figures_not_written")
+    if named is not None:
+        if named.split(", ") != want_figs or pngs:
+            fail(f"recipe cli: figures_not_written {named!r} (PNGs {pngs}), want"
+                 f" exactly {want_figs}")
+    elif sorted(pngs) != sorted(want_figs):
+        fail(f"recipe cli: PNGs {pngs}, want {want_figs}")
+    registered = tracker.latest_model_version(RECIPE_CLI_MODEL)
+    meta = json.loads((registered / "registry_meta.json").read_text())
+    if meta["run_id"] != run.run_id:
+        fail(f"recipe cli: registry_meta.json {meta} does not name run {run.run_id}")
+    if not abs(metrics["accuracy"] - programmatic_acc) <= RECIPE_ACC_MARGIN:
+        fail(f"recipe cli: accuracy {metrics['accuracy']}, the programmatic run's"
+             f" {programmatic_acc} (want within {RECIPE_ACC_MARGIN})")
+    parity = metrics.get("export_parity_max_abs_diff")
+    if parity is None or not parity <= 1e-6:
+        fail(f"recipe cli: export parity {parity} (want <= 1e-6)")
+
+    predictor = load_predictor(registered, device="cuda")
+    rng = np.random.default_rng(SEED + 23)
+    h, w = IMAGE_HW
+    image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    pts = points(rng, 25)
+    csv_path = base / "serve_cli.csv"
+    write_points(csv_path, pts)
+    spec = f"models:/{RECIPE_CLI_MODEL}"
+    ann = AnnotationRun(image, csv_path, spec, extractor=extractor,
+                        tracker_root=tracker.root)
+    patch_crop.launches = 0
+    fused_mbconv.launches = 0
+    ann.run()
+    launches = (patch_crop.launches, fused_mbconv.launches)
+    torch.cuda.synchronize()
+    if launches != (1, 11):
+        fail(f"recipe cli: {spec} launched (crop, fused) {launches}, want (1, 11)")
+    check_run(ann, 25, list(predictor.classes_), ann.top_n)
+    feats = extractor.extract_features(image, np.asarray(pts, np.int32))
+    diff = float(np.abs(ann.proba - predictor.predict_proba(feats)).max())
+    if not diff <= 2e-6:
+        fail(f"recipe cli: {spec} scores {diff:.3e} from the registered predictor"
+             " on extract_features (want <= 2e-6)")
+
+    bad = base / "bad_config"
+    bad.mkdir()
+    (bad / "training_config.yaml").write_text(
+        "training: {epochs: 2}\nnot_a_real_block: {}\n")
+    t2 = time.perf_counter()
+    job = subprocess.run(
+        [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.train_job_entrypoint",
+         "--config-dir", str(bad)], cwd=base, env=env, capture_output=True, text=True,
+        timeout=300)
+    job_s = time.perf_counter() - t2
+    if job.returncode != 1 or "==== FAIL load_config" not in job.stdout:
+        print(job.stdout[-4000:], job.stderr[-4000:], file=sys.stderr)
+        fail(f"recipe cli: train_job_entrypoint on an unknown key exited"
+             f" {job.returncode} (want 1 with '==== FAIL load_config')")
+
+    import csv
+
+    with run.artifact("profiled_sections.csv").open() as fh:
+        sections = [f"{r['name']} {r['seconds']}" for r in csv.DictReader(fh)]
+    say(f"recipe cli: classifier_train --config-dir exit 0 in {cli_s:.1f} s;"
+        f" accuracy {metrics['accuracy']} (programmatic {programmatic_acc}, within"
+        f" {RECIPE_ACC_MARGIN}); export parity {parity:.3e}; nine groups timed;"
+        f" ece {metrics['ece']:.4f}, top_5_accuracy {metrics['top_5_accuracy']:.4f},"
+        f" mrr {metrics['mrr']:.4f}, cross_branch_error_rate"
+        f" {metrics['cross_branch_error_rate']:.4f}, cover_mean_rmse_pct"
+        f" {metrics['cover_mean_rmse_pct']:.4f}, per_source/n_sources"
+        f" {metrics['per_source/n_sources']:.0f}; registered"
+        f" {registered.parent.name}/{registered.name}")
+    if named is not None:
+        say(f"recipe cli: figures_not_written ({len(want_figs)}, matplotlib does not"
+            f" import here): {named}")
+    else:
+        say(f"recipe cli: {len(pngs)} figures written: {', '.join(sorted(pngs))}")
+    say(f"recipe cli: {spec} served 25 points, launches crop={launches[0]}"
+        f" fused={launches[1]}, max |dp| vs the registered predictor {diff:.3e}"
+        f" (<= 2e-6)")
+    say(f"recipe cli: train_job_entrypoint on a config with an unknown key:"
+        f" '==== FAIL load_config', exit 1, in {job_s:.1f} s")
+    say(f"time recipe cli on {smi}: wall {cli_s:.1f} s; profiled_sections (s):"
+        f" {', '.join(sections)}")
+    say(f"time recipe cli on {smi}: metrics_group_seconds: {json.dumps(seconds)}")
+    del predictor
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
 
 
 BUCKET_IMAGES, BUCKET_POINTS = 24, (25, 200)  # per source; points per image
@@ -1611,12 +1865,12 @@ def phase_bucket(variables, config, tmp: Path, smi: str, trunk_rates: dict):
     the predict_features CLI and AnnotationRun."""
     import csv
     import io
-    import os
     from dataclasses import replace
 
     import numpy as np
     import torch
 
+    from mermaid_classifier_tpu_torch.config.settings import settings
     from mermaid_classifier_tpu_torch.data.feature_bucket import feature_key
     from mermaid_classifier_tpu_torch.data.labels import (
         ImageLabels,
@@ -1686,7 +1940,7 @@ def phase_bucket(variables, config, tmp: Path, smi: str, trunk_rates: dict):
         f" x{BUCKET_VAR_GAIN})")
     weights = tmp / "b0_weights.npz"
     save_backbone_npz(str(weights), variables, config)
-    os.environ["OBJECT_STORE_ROOT"] = str(root)
+    settings.object_store_root = str(root)
     say(f"bucket: store of {n_images + 1} images ({fmt}, {IMAGE_HW[0]}x"
         f"{IMAGE_HW[1]}) over sources 1 (canonical, one corrupt) and 2"
         f" (CoralNet export), {n_points} points in {chunks} 128-patch chunks,"
@@ -2367,11 +2621,11 @@ def main() -> None:
         # replays, later profiles in the process read device times below
         # the kernels' bounds (PERF.md, the training lane).
         trunk_rates = phase_times(config, folded, results, extractor, run25, smi)
-        with restored_env("OBJECT_STORE_ROOT"):
+        with restored_settings("object_store_root"):
             phase_bucket(variables, config, Path(tmp), smi, trunk_rates)
         phase_train(extractor, Path(tmp), smi)
         phase_trainer(extractor, Path(tmp), smi)
-        with restored_env("OBJECT_STORE_ROOT", TAXONOMY_FIXTURE_ENV):
+        with restored_env(TAXONOMY_FIXTURE_ENV):
             phase_recipe(extractor, Path(tmp), smi)
         phase_trunk_ab(variables, config, results)
 

@@ -15,6 +15,9 @@ follows that type:
 - bool, with no missing value: ``True`` / ``False``;
 - anything else (str, mixed): ``str(value)``;
 - a missing value (None or NaN): the empty field.
+
+``Table.sort_values`` orders rows as ``DataFrame.sort_values(name,
+ascending=...)`` does with its default kind (``pandas_sort_order``).
 """
 
 from __future__ import annotations
@@ -146,8 +149,33 @@ class Table:
         rows = [r[:position] + (v,) + r[position:] for r, v in zip(self.rows, values)]
         return Table(cols, rows)
 
+    def sort_values(self, name: str, ascending: bool = True) -> "Table":
+        """The rows in ``pandas_sort_order`` of column ``name``."""
+        order = pandas_sort_order(self.column(name), ascending)
+        return Table(self.columns, [self.rows[i] for i in order])
+
     def __repr__(self) -> str:
         return f"Table(columns={self.columns!r}, {len(self.rows)} rows)"
+
+
+def pandas_sort_order(values: Sequence, ascending: bool = True) -> np.ndarray:
+    """The row order of pandas' ``nargsort`` with its default quicksort:
+    numpy's unstable ``argsort`` over the non-NaN values (reversed before
+    and after the sort when descending), the NaN rows last. Rows with equal
+    values come out in pandas' order, which is not Python's stable
+    ``sorted`` order once there are more than 16 rows."""
+    items = np.asarray(values)
+    mask = np.isnan(items) if items.dtype.kind == "f" else np.zeros(len(items), bool)
+    idx = np.arange(len(items))
+    non_nans = items[~mask]
+    non_nan_idx = idx[~mask]
+    if not ascending:
+        non_nans = non_nans[::-1]
+        non_nan_idx = non_nan_idx[::-1]
+    indexer = non_nan_idx[non_nans.argsort(kind="quicksort")]
+    if not ascending:
+        indexer = indexer[::-1]
+    return np.concatenate([indexer, np.nonzero(mask)[0]])
 
 
 def as_table(data: Any) -> Table:

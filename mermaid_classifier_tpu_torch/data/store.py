@@ -8,10 +8,11 @@ the two disciplines that make the at-scale extraction resumable:
 - writes are atomic (temp + rename) and idempotent at (bucket, key);
 - the bucket listing is the source of truth for progress.
 
-``get_default_store`` takes its root from ``OBJECT_STORE_ROOT`` in the
-environment at call time, else from ``settings.object_store_root`` (which
-also covers a ``.env`` file and ``override_settings``). The S3 backend
-(``s3_store``) is not ported: an ``s3://`` root raises.
+``get_default_store`` takes its root from ``settings.object_store_root``
+only, as the JAX package does: ``OBJECT_STORE_ROOT`` in the environment or
+a ``.env`` file when the settings are read (``reload_settings_from_env``
+re-reads them), or ``override_settings``. The S3 backend (``s3_store``) is
+not ported: an ``s3://`` root raises.
 """
 
 from __future__ import annotations
@@ -147,17 +148,17 @@ class LocalFSObjectStore(ObjectStore):
 
 
 def get_default_store() -> ObjectStore:
-    """The store named by ``OBJECT_STORE_ROOT`` (the environment at call
-    time, else ``settings.object_store_root``): a local-FS root. An
-    ``s3://`` root raises, because the S3 backend is not in this package."""
+    """The store at ``settings.object_store_root`` (``OBJECT_STORE_ROOT`` in
+    the environment or ``.env`` when the settings were read, or
+    ``override_settings``): a local-FS root. An ``s3://`` root raises,
+    because the S3 backend is not in this package."""
     from mermaid_classifier_tpu_torch.config.settings import settings
 
-    root = os.environ.get("OBJECT_STORE_ROOT") or settings.object_store_root
+    root = settings.object_store_root
     if not root:
         raise ObjectStoreError(
-            "OBJECT_STORE_ROOT is not set (environment, .env or"
-            " settings.object_store_root); set it or inject an ObjectStore"
-            " explicitly."
+            "settings.object_store_root is not set; configure OBJECT_STORE_ROOT"
+            " or inject an ObjectStore explicitly."
         )
     if root.startswith("s3://"):
         raise ObjectStoreError(

@@ -2,16 +2,21 @@
 P/R/F1, balanced accuracy + MCC.
 
 The port of ``mermaid_classifier_tpu/metrics/classification.py`` on numpy
-and scipy, numbers and tables only (no figures). Each sklearn call of the
-JAX groups has a numpy counterpart with sklearn 1.9's semantics:
+and scipy. The two confusion-matrix figures are ``Drawing``s the
+coordinator draws (``common.plots.confusion_display`` in place of sklearn's
+``ConfusionMatrixDisplay``), with the JAX size and dpi caps. Each sklearn
+call of the JAX groups has a numpy counterpart with sklearn 1.9's
+semantics:
 
 - ``confusion_matrix`` over ``labels`` with ``normalize="true"`` (rows
   divided by their sums, 0 for an empty row);
 - ``cosine_distances``: rows L2-normalised (a norm below 10 eps counts as
   1), ``1 - X X^T`` clipped to [0, 2], zero diagonal;
 - macro ``precision_score`` / ``recall_score`` with ``zero_division=0.0``,
-  averaged over the sorted labels present in gt or est;
-- ``balanced_accuracy_score``: the mean recall over the labels in gt;
+  averaged over the sorted labels present in gt or est, and macro
+  ``precision_recall_fscore_support`` (the per-source group's);
+- ``balanced_accuracy_score``: the mean recall over the labels in gt, with
+  sklearn's warnings;
 - multiclass ``matthews_corrcoef``.
 
 The clustering order is scipy's average ``linkage`` and ``leaves_list``, as
@@ -20,10 +25,12 @@ in JAX.
 
 from __future__ import annotations
 
+import warnings
 from collections import Counter
 
 import numpy as np
 
+from mermaid_classifier_tpu_torch.common.plots import confusion_display, pyplot
 from mermaid_classifier_tpu_torch.common.table import Table
 from mermaid_classifier_tpu_torch.metrics.context import MetricsContext
 from mermaid_classifier_tpu_torch.metrics.groups import metric_group
@@ -86,12 +93,38 @@ def precision_recall_macro(gt_labels, est_labels) -> tuple[float, float]:
     )
 
 
-def balanced_accuracy_score(gt_labels, est_labels) -> float:
+def precision_recall_fscore_macro(gt_labels, est_labels) -> tuple[float, float, float]:
+    """``precision_recall_fscore_support(average="macro",
+    zero_division=0)``'s precision, recall and F1 (F1 from the counts,
+    2 tp / (true + predicted))."""
     labels, gt, est = _label_codes(gt_labels, est_labels)
     cm = confusion_matrix(gt, est, len(labels))
+    tp = np.diag(cm)
+    pred_sum, true_sum = cm.sum(axis=0), cm.sum(axis=1)
+    return (
+        _macro_divide(tp, pred_sum),
+        _macro_divide(tp, true_sum),
+        _macro_divide(2.0 * tp, true_sum + pred_sum),
+    )
+
+
+def balanced_accuracy_score(gt_labels, est_labels) -> float:
+    """sklearn's, with its two UserWarnings: one label in all, and
+    predicted labels that never occur in gt."""
+    labels, gt, est = _label_codes(gt_labels, est_labels)
+    cm = confusion_matrix(gt, est, len(labels))
+    if cm.shape == (1, 1):
+        warnings.warn(
+            "A single label was found in 'y_true' and 'y_pred'. For the confusion "
+            "matrix to have the correct shape, use the 'labels' parameter to pass "
+            "all known labels.",
+            UserWarning,
+        )
     with np.errstate(divide="ignore", invalid="ignore"):
         per_class = np.diag(cm) / cm.sum(axis=1)
-    per_class = per_class[~np.isnan(per_class)]
+    if np.any(np.isnan(per_class)):
+        warnings.warn("y_pred contains classes not in y_true")
+        per_class = per_class[~np.isnan(per_class)]
     return float(np.mean(per_class))
 
 
@@ -131,10 +164,50 @@ def _hierarchical_class_order(val_results) -> list[int]:
     return [int(i) for i in leaves_list(linkage_matrix)]
 
 
+# Longest raster side for confusion-matrix PNGs. At 80 classes the figure
+# is 48 in; dpi 100 with bbox_inches="tight" re-renders the 6,400-text
+# canvas twice at 4800 px. Capping the long side at 2400 px (>= 30 px per
+# cell at 80 classes) and saving without the tight-bbox measuring pass
+# keeps the content and cuts the time (the JAX package's caps).
+_CONFUSION_MAX_RASTER_PX = 2400
+
+
+def _confusion_size(n: int) -> float:
+    return max(12, n * 0.6)
+
+
+def _confusion_figure(data: dict):
+    """The confusion-matrix figure of ``data`` ("matrix", "names"), ticks on
+    top, tight layout."""
+    plt = pyplot()
+    names = data["names"]
+    n = len(names)
+    fig_size = _confusion_size(n)
+    fig, ax = plt.subplots(figsize=(fig_size, fig_size))
+    try:
+        confusion_display(ax, data["matrix"], names)
+        ax.xaxis.set_label_position("top")
+        ax.xaxis.set_ticks_position("top")
+        font_size = max(8, min(12, 150 / max(n, 1)))
+        plt.setp(
+            ax.get_xticklabels(),
+            rotation=45,
+            ha="left",
+            rotation_mode="anchor",
+            fontsize=font_size,
+        )
+        plt.setp(ax.get_yticklabels(), fontsize=font_size)
+        plt.tight_layout()
+    except Exception:
+        plt.close(fig)
+        raise
+    return fig
+
+
 @metric_group("confusion_matrices")
 def compute_confusion_matrices(ctx: MetricsContext) -> GroupOutput:
     """Frequency and percent-normalized confusion matrices, rows/cols
-    reordered by the clustering order, as CSV artifacts."""
+    reordered by the clustering order, as CSV + figure artifacts."""
     out = GroupOutput()
     val_results = ctx.val_results
     order = _hierarchical_class_order(val_results)
@@ -157,6 +230,11 @@ def compute_confusion_matrices(ctx: MetricsContext) -> GroupOutput:
                   [(name, *row) for name, row in zip(names, matrix.tolist())]),
             filestem,
         )
+        # The raster cap, and no tight-bbox pass (the drawing already ran
+        # tight_layout).
+        dpi = min(100.0, _CONFUSION_MAX_RASTER_PX / _confusion_size(len(names)))
+        out.figure(_confusion_figure, {"matrix": matrix, "names": names},
+                   filestem + ".png", dpi=dpi, bbox_inches=None)
     return out
 
 

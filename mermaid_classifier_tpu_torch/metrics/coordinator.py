@@ -5,7 +5,13 @@ The port's own copy of ``mermaid_classifier_tpu/metrics/coordinator.py``:
 the same validation, shared taxonomy caches, probability precompute and
 per-group exception isolation (a failing group logs a warning and the
 others still run, so a missing scalar is the only sign of one); tables are
-logged as CSV and mappings as JSON or YAML, and there are no figures."""
+logged as CSV and mappings as JSON or YAML.
+
+Figures are drawn here, at log time, from each group's ``Drawing``
+(``Run.log_figure``). Where matplotlib does not import, every group still
+logs its scalars and tables, and the run gets one param,
+``figures_not_written``, naming each figure path it could not draw (comma
+separated, in log order). No figure is skipped silently."""
 
 from __future__ import annotations
 
@@ -14,12 +20,14 @@ import time
 
 import numpy as np
 
+from mermaid_classifier_tpu_torch.common.plots import matplotlib_importable
 from mermaid_classifier_tpu_torch.metrics.context import (
     MetricsContext,
     MetricsContextError,
 )
 from mermaid_classifier_tpu_torch.metrics.groups import runnable_groups
 from mermaid_classifier_tpu_torch.metrics.outputs import (
+    FIGURE,
     MAPPING,
     TABLE,
     GroupOutput,
@@ -31,6 +39,8 @@ from mermaid_classifier_tpu_torch.metrics.taxonomy_index import (
 from mermaid_classifier_tpu_torch.tracking.local_tracker import Run
 
 logger = logging.getLogger(__name__)
+
+FIGURES_NOT_WRITTEN = "figures_not_written"
 
 
 class MetricsCoordinator:
@@ -46,6 +56,10 @@ class MetricsCoordinator:
         # same self-explanation discipline as resident/* and
         # profiled_sections).
         self.group_seconds: dict[str, float] = {}
+        # Figure paths of the last compute_and_log_all that matplotlib was
+        # not there to draw.
+        self.figures_not_written: list[str] = []
+        self._can_draw = True
 
     def compute_and_log_all(self) -> None:
         try:
@@ -70,6 +84,13 @@ class MetricsCoordinator:
             self._precompute_probabilities()
 
         self.group_seconds = {}
+        self.figures_not_written = []
+        self._can_draw = matplotlib_importable()
+        if not self._can_draw:
+            logger.warning(
+                "matplotlib does not import: metric figures are not drawn and"
+                " are named in the %r param", FIGURES_NOT_WRITTEN
+            )
         for group in runnable_groups(self.ctx):
             t0 = time.perf_counter()
             try:
@@ -80,6 +101,10 @@ class MetricsCoordinator:
                 elapsed = round(time.perf_counter() - t0, 3)
                 self.group_seconds[group.name] = elapsed
                 logger.debug("metric group %r: %.3fs", group.name, elapsed)
+        if self.figures_not_written:
+            self.run.log_param(
+                FIGURES_NOT_WRITTEN, ", ".join(self.figures_not_written)
+            )
         if self.group_seconds:
             # Same isolation as every other tracker write here: a timing
             # artifact must never abort a metrics stage that already
@@ -127,6 +152,15 @@ class MetricsCoordinator:
                 self.run.log_dataframe(artifact.payload, path)
             elif artifact.kind == MAPPING:
                 self.run.log_dict(artifact.payload, artifact.path)
+            elif artifact.kind == FIGURE:
+                if not self._can_draw:
+                    self.figures_not_written.append(artifact.path)
+                    continue
+                self.run.log_figure(
+                    artifact.payload.render(),
+                    artifact.path,
+                    **(artifact.save_kwargs or {}),
+                )
             else:
                 logger.warning(
                     "Unknown artifact kind %r at %r; skipped",

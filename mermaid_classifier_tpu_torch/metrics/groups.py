@@ -12,10 +12,8 @@ subset whose prerequisites are satisfied. Report ordering is pinned by
 import order; groups registered beyond that list append after it in
 registration order.
 
-The port's own copy of ``mermaid_classifier_tpu/metrics/groups.py``. Four
-of the nine groups are ported (``classification`` and ``probability``);
-the five in ``NOT_PORTED`` are not registered yet, and ``all_groups``
-skips them.
+The port's own copy of ``mermaid_classifier_tpu/metrics/groups.py``, with
+the same nine groups.
 """
 
 from __future__ import annotations
@@ -55,9 +53,6 @@ REPORT_ORDER = (
 )
 
 
-# REPORT_ORDER groups that have no port yet (ROADMAP A 3e).
-NOT_PORTED = ("taxonomic", "calibration", "cover", "per_source", "ranking")
-
 
 def metric_group(name: str, needs: tuple[str, ...] = ()) -> typing.Callable:
     """Register ``fn`` as the metric group ``name``. ``needs`` lists the
@@ -85,23 +80,26 @@ def _load_group_modules() -> None:
     # must be imported before the registry is read. Done lazily here (not
     # at module top) because those modules import the decorator from us.
     from mermaid_classifier_tpu_torch.metrics import (  # noqa: F401
+        calibration,
         classification,
+        cover,
+        per_source,
         probability,
+        ranking,
+        taxonomic,
     )
 
 
 def all_groups() -> tuple[MetricGroup, ...]:
     """Every registered group, in report order (extras after, in
-    registration order); the NOT_PORTED groups are skipped."""
+    registration order)."""
     _load_group_modules()
-    missing = [
-        n for n in REPORT_ORDER if n not in _REGISTERED and n not in NOT_PORTED
-    ]
+    missing = [n for n in REPORT_ORDER if n not in _REGISTERED]
     if missing:
         raise RuntimeError(
             f"REPORT_ORDER names unregistered metric groups: {missing}"
         )
-    ordered = [_REGISTERED[n] for n in REPORT_ORDER if n in _REGISTERED]
+    ordered = [_REGISTERED[n] for n in REPORT_ORDER]
     ordered += [g for n, g in _REGISTERED.items() if n not in REPORT_ORDER]
     return tuple(ordered)
 

@@ -9,7 +9,10 @@ Usage:
 
 ``--image`` is a local path, ``store://bucket/key`` or a numeric CoralNet
 image ID. Without ``--output-dir`` the predictions are written back into
-the points CSV; with it, ``predictions.csv`` and ``summary.json`` go there.
+the points CSV; with it, ``predictions.csv``, ``summary.json`` and the
+marker overlay ``overlay.png`` go there. Where matplotlib does not import,
+the overlay is not written, a warning on stderr says so, and the exit code
+is still 0: the predictions are the result, the overlay a view of them.
 """
 
 from __future__ import annotations

@@ -10,22 +10,32 @@ the points CSV.
 The points file is read with the stdlib ``csv`` module. The image is a
 decoded (H, W, 3) uint8 array or a spec resolved by the injectable
 ``ImageFetcher`` (``serve/image_sources.py``): a local path, a
-``store://`` URI or a CoralNet image ID. The marker overlay (``show()``) is
-not ported.
+``store://`` URI or a CoralNet image ID. The marker overlay (``show()``)
+imports matplotlib when it is called; ``write_run_report`` writes the
+overlay PNG only where matplotlib imports.
 """
 
 from __future__ import annotations
 
 import csv
 import json
+import logging
 import tempfile
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
+from mermaid_classifier_tpu_torch.common.plots import (
+    PointMarker,
+    matplotlib_importable,
+    plot_point_markers,
+    pyplot,
+)
 from mermaid_classifier_tpu_torch.inference.loader import Predictor, load_predictor
 from mermaid_classifier_tpu_torch.serve.image_sources import ImageFetcher
+
+logger = logging.getLogger(__name__)
 
 _ROW_ALIASES = ("row", "Row", "ROW")
 _COL_ALIASES = ("col", "Col", "COL", "column", "Column")
@@ -235,6 +245,30 @@ class AnnotationRun:
                 writer.writerow(row)
         return output_csv
 
+    def show(self, ax=None):
+        """Render the image with grouped point markers labeled by top-1
+        prediction + confidence. Returns the matplotlib Figure."""
+        plt = pyplot()
+        if self.predictions is None:
+            self.run()
+        if ax is None:
+            fig, ax = plt.subplots(figsize=(10, 8))
+        else:
+            fig = ax.figure
+        ax.imshow(self.load_image())
+        markers = [
+            PointMarker(
+                row=p.row,
+                col=p.col,
+                group=p.labels[0] if p.labels else "?",
+                text=f"{p.scores[0]:.2f}" if p.scores else "",
+            )
+            for p in self.predictions
+        ]
+        plot_point_markers(ax, markers)
+        ax.set_axis_off()
+        return fig
+
     def summary(self) -> dict:
         if self.predictions is None:
             self.run()
@@ -252,10 +286,19 @@ class AnnotationRun:
 
 
 def write_run_report(run: AnnotationRun, output_dir: str | Path) -> Path:
-    """Predictions CSV + JSON summary in one directory (the JAX report's
-    overlay PNG is not written: ``show()`` is not ported)."""
+    """Predictions CSV + overlay PNG + JSON summary in one directory. Where
+    matplotlib does not import, the overlay (a view of the predictions) is
+    not written and a logged warning says so; the CSV and summary are."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     run.write_predictions(output_dir / "predictions.csv")
+    if matplotlib_importable():
+        fig = run.show()
+        try:
+            fig.savefig(output_dir / "overlay.png", dpi=120, bbox_inches="tight")
+        finally:
+            pyplot().close(fig)
+    else:
+        logger.warning("overlay.png not written: matplotlib does not import")
     (output_dir / "summary.json").write_text(json.dumps(run.summary(), indent=2))
     return output_dir

@@ -22,7 +22,8 @@ bytes ``DataFrame.to_csv(index=False)`` writes (``common.table``), and
 ``log_dict`` to a ``.yaml`` path writes the bytes
 ``yaml.safe_dump(data, sort_keys=False)`` writes for a flat dict of str
 keys and None / bool / int / float / str values (``safe_dump_flat``).
-There is no ``log_figure``: no ported metric group draws one.
+``log_figure`` saves a matplotlib Figure as the JAX tracker does;
+matplotlib is imported inside the call only.
 """
 
 from __future__ import annotations
@@ -262,6 +263,18 @@ class Run:
         """Write a Table, records or a dict of columns as CSV."""
         with open(self._artifact_path(artifact_path), "w", newline="") as f:
             f.write(to_csv_text(table))
+
+    def log_figure(self, fig: Any, artifact_path: str, **save_kwargs: Any) -> None:
+        """``fig.savefig`` into the run, ``bbox_inches="tight"`` unless the
+        caller's kwargs say otherwise; the figure is closed either way."""
+        kwargs: dict[str, Any] = {"bbox_inches": "tight"}
+        kwargs.update(save_kwargs)
+        try:
+            fig.savefig(self._artifact_path(artifact_path), **kwargs)
+        finally:
+            import matplotlib.pyplot as plt
+
+            plt.close(fig)
 
     def log_artifact(self, local_path: str | Path, artifact_path: str | None = None) -> None:
         local_path = Path(local_path)

@@ -13,9 +13,9 @@ The port of ``mermaid_classifier_tpu/train/runner.py``:
   resident gather when the val rows are on the device), and register it.
 
 Not ported, each raising where it is asked for: the data-parallel mesh
-(``settings.train_mesh_devices``, ROADMAP A 6) and the store mirror of
+(``settings.train_mesh_devices``) and the store mirror of
 finished runs (``settings.tracking_sync_bucket``, ``tracking/store_sync.py``).
-The packed feature cache (ROADMAP A 3f) is not passed to the trainer; the
+The packed feature cache is not passed to the trainer; the
 run logs the param ``packed_feature_cache`` as "not ported".
 """
 
@@ -138,7 +138,7 @@ class TrainingRunner:
         if settings.train_mesh_devices is not None:
             raise NotImplementedError(
                 f"train_mesh_devices={settings.train_mesh_devices}: data-parallel"
-                " head training over a device mesh is not ported (ROADMAP A 6)"
+                " head training over a device mesh is not ported"
             )
         opts = self.training_options
         return MermaidTrainer(

@@ -32,12 +32,14 @@ semantics.
 from __future__ import annotations
 
 import copy
+import math
 import heapq
 import os
 import pickle
 import tempfile
 import threading
 import time
+import warnings
 from collections.abc import Callable
 from contextlib import contextmanager
 from logging import getLogger
@@ -78,14 +80,16 @@ def accuracy_score(y_true, y_pred) -> float:
 
 def log_loss(y_true, y_proba, labels) -> float:
     """sklearn 1.9's ``log_loss(y_true, y_proba, labels=labels)``: columns
-    in sorted ``labels`` order, each row's true-class probability clipped
-    to [eps, 1 - eps] at float64 eps, no renormalization, the mean of the
-    negative logs."""
-    proba = np.asarray(y_proba, dtype=np.float64)
-    if proba.ndim == 1:
-        proba = proba[:, None]
-    if proba.shape[1] == 1:
-        proba = np.concatenate([1.0 - proba, proba], axis=1)
+    in sorted ``labels`` order, no renormalization, the mean of the negative
+    logs of each row's true-class probability clipped to [eps, 1 - eps].
+
+    The dtype follows sklearn's (``check_array(dtype=supported_float_dtypes)``):
+    a float32 or float16 input keeps its dtype, so eps, the logs and the
+    mean are of that dtype; any other input is cast to float64. Rows that
+    do not sum to 1 within sqrt(eps) relative warn as sklearn warns."""
+    proba = np.asarray(y_proba)
+    if proba.dtype not in (np.float32, np.float16):
+        proba = proba.astype(np.float64)
     if proba.max() > 1:
         raise ValueError(f"y_prob contains values greater than 1: {proba.max()}")
     if proba.min() < 0:
@@ -108,12 +112,23 @@ def log_loss(y_true, y_proba, labels) -> float:
         raise ValueError(
             f"The labels array needs to contain at least two labels, got {classes}."
         )
+    if proba.ndim == 1:
+        proba = proba[:, None]
+    if proba.shape[1] == 1:
+        proba = np.concatenate([1 - proba, proba], axis=1)
+    eps = np.finfo(proba.dtype).eps
+    one = np.asarray(1, dtype=proba.dtype)
+    if not np.all(np.abs(proba.sum(axis=1) - one)
+                  <= 1e-08 + math.sqrt(eps) * np.abs(one)):
+        warnings.warn(
+            "The y_prob values do not sum to one. Make sure to pass probabilities.",
+            UserWarning,
+        )
     if len(classes) != proba.shape[1]:
         raise ValueError(
             "The number of classes in labels is different from that in"
             f" y_prob. Classes found in labels: {classes}"
         )
-    eps = np.finfo(proba.dtype).eps
     true_p = np.clip(proba, eps, 1 - eps)[np.arange(len(pos)), pos]
     return float(np.average(-np.log(true_p)))
 

@@ -3,8 +3,10 @@ image, points CSV, weights bundle (with its config sidecar) and head
 artifact: the predictions written back into the points CSV agree (scores
 within 1e-4, the slice bound of tests/test_torch_annotation.py; labels
 wherever neighbouring scores are more than 1e-4 apart). Then the port's
-report directory, the ``store://`` image and artifact specs, and the
-``models:/`` registry spec."""
+report directory (with and without matplotlib), ``AnnotationRun.show()``
+plotting what the JAX one plots for the same predictions, the
+``store://`` image and artifact specs, and the ``models:/`` registry
+spec."""
 
 import csv
 import importlib.util
@@ -21,6 +23,7 @@ from mermaid_classifier_tpu_torch.models.extractor import build_extractor
 from mermaid_classifier_tpu_torch.scripts import annotate_image as tcli
 from mermaid_classifier_tpu_torch.serve import annotation as tann
 from tests.models.test_efficientnet import TINY
+from tests.torch_store_env import store_root_env  # noqa: F401
 from tests.test_torch_efficientnet import (
     jax_variables_numpy,
     perturbed,
@@ -122,7 +125,8 @@ def test_report_dir_matches_annotation_run(inputs, tmp_path):
     out = tmp_path / "report"
     assert tcli.main(_args(weights, artifact, image, points, "--device", "cpu",
                            "--output-dir", str(out))) == 0
-    assert sorted(p.name for p in out.iterdir()) == ["predictions.csv", "summary.json"]
+    assert sorted(p.name for p in out.iterdir()) == [
+        "overlay.png", "predictions.csv", "summary.json"]
     from mermaid_classifier_tpu_torch.models.convert import load_backbone_bundle
 
     run = tann.AnnotationRun(
@@ -133,13 +137,13 @@ def test_report_dir_matches_annotation_run(inputs, tmp_path):
     assert json.loads((out / "summary.json").read_text()) == run.summary()
 
 
-def test_store_specs(inputs, tmp_path, monkeypatch):
+def test_store_specs(inputs, tmp_path, store_root_env):
     _, weights, artifact, image, points = inputs
     store = LocalFSObjectStore(tmp_path / "store")
     store.upload(image, "imgs", "s1/reef.png")
     for name in ("model.npz", "model.json"):
         store.upload(artifact / name, "models", f"reef/{name}")
-    monkeypatch.setenv("OBJECT_STORE_ROOT", str(tmp_path / "store"))
+    store_root_env(tmp_path / "store")
     out_store, out_local = tmp_path / "a", tmp_path / "b"
     assert tcli.main(_args(weights, "store://models/reef", "store://imgs/s1/reef.png",
                            points, "--device", "cpu", "--output-dir",
@@ -184,3 +188,56 @@ def test_registry_spec_names_tracking(tmp_path, inputs):
     got = tann.resolve_classifier_artifact(
         "models:/reef-model", tracker_root=tracker.root)
     assert got == tracker.root / "_models" / "reef-model" / "v1"
+
+
+def _port_run(inputs):
+    from mermaid_classifier_tpu_torch.models.convert import load_backbone_bundle
+
+    _, weights, artifact, image, points = inputs
+    run = tann.AnnotationRun(
+        str(image), points, artifact, top_n=K,
+        extractor=build_extractor(*load_backbone_bundle(str(weights)), device="cpu"))
+    run.run()
+    return run
+
+
+def test_report_without_matplotlib(inputs, tmp_path, monkeypatch, caplog):
+    """matplotlib hidden: the CLI still exits 0 with the predictions and
+    summary, and says on stderr (its log) that the overlay was not
+    written."""
+    import sys
+
+    _, weights, artifact, image, points = inputs
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = tmp_path / "report"
+    with caplog.at_level("WARNING"):
+        assert tcli.main(_args(weights, artifact, image, points, "--device", "cpu",
+                               "--output-dir", str(out))) == 0
+    assert sorted(p.name for p in out.iterdir()) == ["predictions.csv", "summary.json"]
+    assert "overlay.png not written" in caplog.text
+
+
+def test_show_plots_what_jax_plots(inputs):
+    """The same predictions and image through each package's ``show()``:
+    the same image array, marker positions per group, texts and axes."""
+    import matplotlib.pyplot as plt
+
+    from mermaid_classifier_tpu.serve import annotation as jann
+    from mermaid_classifier_tpu.serve.image_sources import ImageFetcher
+    from tests.torch_figures import assert_same_plot, plotted
+
+    port = _port_run(inputs)
+    jrun = jann.AnnotationRun.__new__(jann.AnnotationRun)
+    jrun.image_spec, jrun.fetcher = port.image_spec, ImageFetcher()
+    jrun.predictions = [jann.PointPrediction(p.row, p.col, list(p.labels),
+                                             list(p.scores))
+                        for p in port.predictions]
+    tfig, jfig = port.show(), jrun.show()
+    try:
+        got, want = plotted(tfig), plotted(jfig)
+        assert_same_plot(got, want, "show")
+        assert len(want["axes"][0]["collections"]) >= 1
+        assert len(want["axes"][0]["texts"]) == len(ROWS)
+    finally:
+        plt.close(tfig)
+        plt.close(jfig)

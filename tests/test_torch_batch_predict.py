@@ -18,6 +18,7 @@ from mermaid_classifier_tpu.train.calibration import CalibratedClassifier
 from mermaid_classifier_tpu.train.mlp_classifier import MLPClassifier
 from mermaid_classifier_tpu_torch.inference.loader import load_predictor
 from mermaid_classifier_tpu_torch.serve import batch_predict as tbp
+from tests.torch_store_env import store_root_env  # noqa: F401
 
 DIM, K = 16, 3
 
@@ -192,7 +193,7 @@ class TestCLI:
         assert rc == 0
         assert len(out.read_text().splitlines()) == 18
 
-    def test_store_spec(self, artifact_dir, feature_files, tmp_path, monkeypatch,
+    def test_store_spec(self, artifact_dir, feature_files, tmp_path, store_root_env,
                         predictor):
         from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
         from mermaid_classifier_tpu_torch.scripts import predict_features as cli
@@ -200,7 +201,7 @@ class TestCLI:
         store = LocalFSObjectStore(tmp_path / "store")
         for name in ("model.npz", "model.json"):
             store.upload(artifact_dir / name, "models", f"reef/v1/{name}")
-        monkeypatch.setenv("OBJECT_STORE_ROOT", str(tmp_path / "store"))
+        store_root_env(tmp_path / "store")
         out = tmp_path / "s.csv"
         assert cli.main(["--classifier", "store://models/reef/v1/", "--output",
                          str(out), "--device", "cpu", str(feature_files[0])]) == 0

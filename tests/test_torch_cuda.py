@@ -871,3 +871,78 @@ def test_recipe_runner_on_cuda_serves_models_spec(cuda, tmp_path, monkeypatch):
     (p0, c0, f0), (p1, c1, f1) = runs
     assert (c1, f1) == (c0, f0) and c0 == 1 and f0 > 0
     np.testing.assert_array_equal(p1, p0)
+
+
+def test_classifier_train_cli_on_cuda(cuda, tmp_path, monkeypatch):
+    """``classifier_train`` on the card from a YAML directory whose env block
+    names the store, bucket, annotation table, taxonomy, feature cache and
+    tracking dir: exit 0, all nine metric groups timed, the export gate
+    passed with the torch pin enforced, the model registered, and each
+    figure either written or named in ``figures_not_written``."""
+    import json
+    import os
+    from pathlib import Path
+
+    from mermaid_classifier_tpu_torch.common import relational, taxonomy
+    from mermaid_classifier_tpu_torch.config import settings as tset
+    from mermaid_classifier_tpu_torch.metrics import REPORT_ORDER
+    from mermaid_classifier_tpu_torch.scripts import classifier_train
+    from mermaid_classifier_tpu_torch.tracking import LocalTracker
+    from mermaid_classifier_tpu_torch.utils import logging_config
+
+    rng = np.random.default_rng(6)
+    roots = [{"id": f"root{r}", "name": f"Root {r}", "parent": None} for r in range(2)]
+    genera = [{"id": f"ba{i}", "name": f"Genus {i}", "parent": f"root{i % 2}"}
+              for i in range(6)]
+    fixture = tmp_path / "taxonomy"
+    fixture.mkdir()
+    (fixture / "benthic_attributes.json").write_text(json.dumps(roots + genera))
+    (fixture / "growth_forms.json").write_text("{}")
+    (fixture / "label_mappings.json").write_text("[]")
+    _recipe_store(tmp_path, rng, [g["id"] for g in genera], 64)
+
+    def read_npz(path):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k].tolist() for k in z.files}
+
+    monkeypatch.setattr(relational, "read_parquet_columns", read_npz)
+    monkeypatch.setattr(logging_config, "logging_config_for_script",
+                        lambda *a, **k: Path("/dev/null"))
+    config_dir = tmp_path / "config"
+    config_dir.mkdir()
+    env_block = {
+        "OBJECT_STORE_ROOT": tmp_path / "store", "MERMAID_TRAIN_DATA_BUCKET": "b",
+        "MERMAID_ANNOTATIONS_PARQUET_PATTERN": tmp_path / "mermaid.npz",
+        taxonomy.TAXONOMY_FIXTURE_ENV: fixture, "FEATURE_CACHE_DIR": tmp_path / "cache",
+        "TRACKING_DIR": tmp_path / "tracking", "BATCH_SIZE": "500"}
+    (config_dir / "training_config.yaml").write_text(
+        "training: {epochs: 3, early_stopping_patience: 2, device_resident: true,"
+        " resident_dtype: bfloat16, calibration_backend: device}\n"
+        "tracking: {experiment_name: cli, model_name: card-cli}\n"
+        "env:\n" + "".join(f"  {k}: '{v}'\n" for k, v in env_block.items()))
+    saved_env = dict(os.environ)
+    saved = {n: getattr(tset.settings, n) for n in tset.Settings.field_names()}
+    try:
+        taxonomy.get_benthic_attribute_library.cache_clear()
+        taxonomy.get_growth_form_library.cache_clear()
+        assert classifier_train.main(["--config-dir", str(config_dir),
+                                      "--device", str(cuda)]) == 0
+    finally:
+        os.environ.clear()
+        os.environ.update(saved_env)
+        for name, value in saved.items():
+            setattr(tset.settings, name, value)
+        taxonomy.get_benthic_attribute_library.cache_clear()
+        taxonomy.get_growth_form_library.cache_clear()
+    tracker = LocalTracker(tmp_path / "tracking")
+    run = tracker.runs("cli")[-1]
+    seconds = json.loads(run.artifact("metrics_group_seconds.json").read_text())
+    assert list(seconds) == list(REPORT_ORDER)
+    metrics = run.latest_metrics()
+    assert metrics["export_parity_max_abs_diff"] <= 1e-6
+    assert run.params()["artifact_eval_inputs"] == "resident(bfloat16)"
+    named = run.params().get("figures_not_written")
+    pngs = [p for p in run.list_artifacts() if p.endswith(".png")]
+    assert (named is None) == bool(pngs)
+    assert "confusion_matrix/frequencies.png" in (pngs or named.split(", "))
+    assert tracker.latest_model_version("card-cli").name == "v1"

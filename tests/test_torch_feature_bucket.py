@@ -31,6 +31,7 @@ from mermaid_classifier_tpu_torch.data import feature_bucket as tfb
 from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore as TStore
 from mermaid_classifier_tpu_torch.models import extractor as text
 from tests.models.test_efficientnet import TINY
+from tests.torch_store_env import store_root_env  # noqa: F401
 from tests.test_torch_efficientnet import (
     jax_variables_numpy,
     perturbed,
@@ -421,11 +422,11 @@ class TestCLI:
     on the CPU, from a weights bundle with its config sidecar."""
 
     @pytest.fixture()
-    def cli_env(self, tmp_path, monkeypatch, variables):
+    def cli_env(self, tmp_path, store_root_env, variables):
         from mermaid_classifier_tpu_torch.models.convert import save_backbone_npz
 
         store = populate(TStore(tmp_path / "store"), corrupt=True)
-        monkeypatch.setenv("OBJECT_STORE_ROOT", str(tmp_path / "store"))
+        store_root_env(tmp_path / "store")
         weights = tmp_path / "weights.npz"
         save_backbone_npz(str(weights), variables, port_config(TINY))
         return store, weights

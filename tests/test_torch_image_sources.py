@@ -15,6 +15,7 @@ from mermaid_classifier_tpu.data.store import LocalFSObjectStore as JStore
 from mermaid_classifier_tpu.serve import image_sources as jsrc
 from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore as TStore
 from mermaid_classifier_tpu_torch.serve import image_sources as tsrc
+from tests.torch_store_env import store_root_env  # noqa: F401
 
 
 def png_bytes(seed: int, size=(6, 9)) -> bytes:
@@ -56,7 +57,7 @@ def test_local_paths_match_jax(tmp_path, monkeypatch):
         assert got.dtype == np.uint8 and got.shape == (6, 9, 3)
 
 
-def test_store_uri_matches_jax(tmp_path, monkeypatch):
+def test_store_uri_matches_jax(tmp_path, store_root_env):
     def fetch(mod, store_cls):
         store = store_cls(tmp_path / mod.__name__.split(".")[0])
         store.put_bytes("imgs", "s1/i9.png", png_bytes(9))
@@ -65,9 +66,10 @@ def test_store_uri_matches_jax(tmp_path, monkeypatch):
     want, got = _both(fetch)
     np.testing.assert_array_equal(got, want)
 
-    # Without an injected store, the port reads OBJECT_STORE_ROOT.
+    # Without an injected store, the port reads OBJECT_STORE_ROOT through
+    # its settings.
     TStore(tmp_path / "root").put_bytes("imgs", "a.png", png_bytes(4))
-    monkeypatch.setenv("OBJECT_STORE_ROOT", str(tmp_path / "root"))
+    store_root_env(tmp_path / "root")
     np.testing.assert_array_equal(
         tsrc.ImageFetcher().fetch("store://imgs/a.png"),
         jsrc.decode_image_bytes(png_bytes(4)))

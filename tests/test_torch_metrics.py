@@ -1,4 +1,5 @@
-"""The port's metrics coordinator and its four groups against the JAX ones.
+"""The port's metrics coordinator and its first four groups against the JAX
+ones (the other five: tests/test_torch_metric_groups.py).
 
 The same ``ValResults``, ``val_proba`` and taxonomy libraries go through
 both coordinators (each logging into its own package's tracker, the
@@ -23,7 +24,7 @@ from mermaid_classifier_tpu.metrics import MetricsCoordinator as JCoord
 from mermaid_classifier_tpu.tracking.local_tracker import LocalTracker as JTracker
 from mermaid_classifier_tpu_torch.common import taxonomy as ttax
 from mermaid_classifier_tpu_torch.data.results import ValResults as TVal
-from mermaid_classifier_tpu_torch.metrics import REPORT_ORDER, NOT_PORTED, all_groups
+from mermaid_classifier_tpu_torch.metrics import REPORT_ORDER, all_groups
 from mermaid_classifier_tpu_torch.metrics import MetricsContext as TCtx
 from mermaid_classifier_tpu_torch.metrics import MetricsCoordinator as TCoord
 from mermaid_classifier_tpu_torch.metrics import classification as tcls
@@ -104,8 +105,9 @@ def test_coordinators_agree(tmp_path, case):
         assert tm[name] == pytest.approx(jm[name], abs=1e-12, rel=0), name
     for path in TABLES:
         assert trun.artifact(path).read_bytes() == jrun.artifact(path).read_bytes(), path
-    assert list(tcoord.group_seconds) == ["confusion_matrices", "precision_recall_f1",
-                                          "balanced_accuracy_mcc", "probability"]
+    # No dataset in the context: cover and per_source are gated out.
+    assert list(tcoord.group_seconds) == [
+        n for n in REPORT_ORDER if n not in ("cover", "per_source")]
     assert trun.artifact("metrics_group_seconds.json").is_file()
     assert "log_loss" in tm and len(trun.artifact(
         "probability/per_category_log_loss.csv").read_text().splitlines()) == 4
@@ -142,8 +144,7 @@ def test_a_failing_group_is_isolated(tmp_path):
 
 def test_report_order_keeps_nine_names():
     assert len(REPORT_ORDER) == 9
-    assert [g.name for g in all_groups()] == [
-        n for n in REPORT_ORDER if n not in NOT_PORTED]
+    assert [g.name for g in all_groups()] == list(REPORT_ORDER)
 
 
 @pytest.mark.parametrize("seed", range(4))

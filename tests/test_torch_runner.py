@@ -15,7 +15,8 @@ cache. Held, each as stated:
   (``tests/test_torch_trainer.py``'s bounds);
 - the registered artifacts' calibrated probabilities within atol 1e-4, the
   val results' gt / est equal and their scores within 1e-4;
-- the port's export parity <= 1e-6, every ported metric logged;
+- the port's export parity <= 1e-6, the nine metric groups timed and the
+  same metric names logged as the JAX run;
 - two runs register v1 then v2, and ``models:/`` serves them through the
   port's ``AnnotationRun``.
 """
@@ -216,9 +217,15 @@ def test_runner_matches_jax(env, resident):
         return [line.split(",")[0] for line in text.splitlines()]
 
     assert names(trun) == names(jrun)
-    assert set(json.loads(trun.artifact("metrics_group_seconds.json").read_text())) \
-        == {"confusion_matrices", "precision_recall_f1", "balanced_accuracy_mcc",
-            "probability"}
+    assert list(json.loads(trun.artifact("metrics_group_seconds.json").read_text())) \
+        == list(json.loads(jrun.artifact("metrics_group_seconds.json").read_text()))
+    # The system samplers and the resident stage budgets (JAX's compile
+    # warm-ups) are each package's own.
+    def evaluated(run):
+        return {m for m in run.latest_metrics()
+                if not m.startswith(("system/", "resident/"))}
+
+    assert evaluated(trun) == evaluated(jrun)
 
 
 def test_registry_versions_and_models_spec(env):
@@ -259,7 +266,7 @@ def test_registry_versions_and_models_spec(env):
 
 def test_unported_settings_raise(env):
     with override_settings(train_mesh_devices=2):
-        with pytest.raises(NotImplementedError, match="A 6"):
+        with pytest.raises(NotImplementedError, match="device mesh is not ported"):
             run_port(env, False, env[3] / "t1")
     with override_settings(tracking_sync_bucket="trk"):
         with pytest.raises(NotImplementedError, match="store_sync"):

@@ -1,9 +1,10 @@
 """The port's object store against the JAX package's: the same operations
 (those of tests/data/test_store.py) on a ``LocalFSObjectStore`` of each
 package give the same results and the same errors. Also the port's
-``get_default_store`` from ``OBJECT_STORE_ROOT`` in the environment, from
-the settings (a ``.env`` file or ``override_settings``) as the JAX one
-reads it, and its ``s3://`` error."""
+``get_default_store`` from its settings (``OBJECT_STORE_ROOT`` in the
+environment or a ``.env`` file once the settings are read, or
+``override_settings``, which wins) as the JAX one reads it, and its
+``s3://`` error."""
 
 import os
 import stat
@@ -132,12 +133,64 @@ def test_download_falls_back_to_copy_across_devices(tmp_path, monkeypatch):
 
 
 def test_default_store_from_environment(tmp_path, monkeypatch):
-    monkeypatch.setenv("OBJECT_STORE_ROOT", str(tmp_path / "root"))
-    store = tstore.get_default_store()
+    """``OBJECT_STORE_ROOT`` reaches the store through the settings, as in
+    the JAX package: set after the settings were read, it takes effect once
+    they are re-read (``reload_settings_from_env``), in both packages."""
+    saved = _saved_settings()
+    try:
+        with jset.override_settings(object_store_root=None), \
+                tset.override_settings(object_store_root=None):
+            monkeypatch.setenv("OBJECT_STORE_ROOT", str(tmp_path / "root"))
+            for mod in (jstore, tstore):
+                with pytest.raises(mod.ObjectStoreError):
+                    mod.get_default_store()
+        monkeypatch.chdir(tmp_path)
+        jset.reload_settings_from_env()
+        tset.reload_settings_from_env()
+        jdefault, store = jstore.get_default_store(), tstore.get_default_store()
+    finally:
+        _restore_settings(saved)
     assert isinstance(store, tstore.LocalFSObjectStore)
-    assert store.root == tmp_path / "root"
+    assert store.root == jdefault.root == tmp_path / "root"
     store.put_bytes("b", "k", b"x")
     assert (tmp_path / "root" / "b" / "k").read_bytes() == b"x"
+
+
+@pytest.mark.parametrize("order", ["env_then_override", "override_then_env"])
+def test_override_wins_over_environment_as_in_jax(tmp_path, monkeypatch, order):
+    """The environment holds one root and ``override_settings`` another,
+    set in either order: the override decides, and the port's root equals
+    the JAX store's."""
+    a, b = tmp_path / "a", tmp_path / "b"
+    env_root, override_root = (a, b) if order == "env_then_override" else (b, a)
+    saved = _saved_settings()
+    try:
+        monkeypatch.chdir(tmp_path)
+        if order == "env_then_override":
+            monkeypatch.setenv("OBJECT_STORE_ROOT", str(env_root))
+            jset.reload_settings_from_env()
+            tset.reload_settings_from_env()
+        with jset.override_settings(object_store_root=str(override_root)), \
+                tset.override_settings(object_store_root=str(override_root)):
+            if order == "override_then_env":
+                monkeypatch.setenv("OBJECT_STORE_ROOT", str(env_root))
+            roots = (jstore.get_default_store().root,
+                     tstore.get_default_store().root)
+    finally:
+        _restore_settings(saved)
+    assert roots == (override_root, override_root)
+
+
+def _saved_settings():
+    return {mod: {n: getattr(mod.settings, n) for n in names}
+            for mod, names in ((jset, list(jset.Settings.model_fields)),
+                               (tset, tset.Settings.field_names()))}
+
+
+def _restore_settings(saved):
+    for mod, values in saved.items():
+        for name, value in values.items():
+            setattr(mod.settings, name, value)
 
 
 @pytest.mark.parametrize("route", ["env_file", "override"])
@@ -147,9 +200,7 @@ def test_default_store_from_settings_matches_jax(tmp_path, monkeypatch, route):
     ``override_settings``. Each store reads what the other wrote."""
     monkeypatch.delenv("OBJECT_STORE_ROOT", raising=False)
     root = tmp_path / "root"
-    saved = {mod: {n: getattr(mod.settings, n) for n in names}
-             for mod, names in ((jset, list(jset.Settings.model_fields)),
-                                (tset, tset.Settings.field_names()))}
+    saved = _saved_settings()
     try:
         if route == "env_file":
             monkeypatch.chdir(tmp_path)
@@ -162,9 +213,7 @@ def test_default_store_from_settings_matches_jax(tmp_path, monkeypatch, route):
                     tset.override_settings(object_store_root=str(root)):
                 got = (jstore.get_default_store(), tstore.get_default_store())
     finally:
-        for mod, values in saved.items():
-            for name, value in values.items():
-                setattr(mod.settings, name, value)
+        _restore_settings(saved)
     jdefault, tdefault = got
     assert isinstance(tdefault, tstore.LocalFSObjectStore)
     assert tdefault.root == jdefault.root == root
@@ -179,6 +228,6 @@ def test_default_store_unset_and_s3_raise(monkeypatch):
     with tset.override_settings(object_store_root=None):
         with pytest.raises(tstore.ObjectStoreError, match="OBJECT_STORE_ROOT"):
             tstore.get_default_store()
-    monkeypatch.setenv("OBJECT_STORE_ROOT", "s3://reef-bucket")
-    with pytest.raises(tstore.ObjectStoreError, match="s3_store"):
-        tstore.get_default_store()
+    with tset.override_settings(object_store_root="s3://reef-bucket"):
+        with pytest.raises(tstore.ObjectStoreError, match="s3_store"):
+            tstore.get_default_store()
