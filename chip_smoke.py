@@ -2,14 +2,17 @@
 """Drive the PyTorch port's serve path, its bulk extraction lane, its
 head-training lane, its trainer, its training recipe (ETL -> resident train
 -> gated export -> nine metric groups -> registry -> ``models:/`` serve,
-programmatically and through the ``classifier_train`` YAML CLI) and its
-full-trunk A/B harness on one CUDA card and check them.
+programmatically and through the ``classifier_train`` YAML CLI), its
+full-trunk A/B harness and the operator's lifecycle around a training run
+(CoralNet manifest, generated config, S3 store, tracking sync, report,
+release, ``store://`` serve) on one CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
 ``nvidia-smi``; it imports only the port (``mermaid_classifier_tpu_torch``),
 torch, numpy, (through the port's calibration) scipy, pyarrow (to write the
-recipe's annotation tables as production has them) and, where it is
+recipe's annotation tables as production has them), the repository's
+stdlib fake S3 endpoint (``tests/data/fake_s3_server.py``) and, where it is
 installed, Pillow, and exits non-zero at the first failed phase.
 
 Phases, one output line each:
@@ -161,6 +164,34 @@ Phases, one output line each:
    of each timed run equal to ``AB_PER_CHUNK``; then the harness's CLI
    ``main`` once at 256 points with its numerics gate, which must print no
    ``[FAIL]``.
+13. lifecycle — what a MERMAID operator runs around a training run, each
+   step through the port's CLI in a subprocess, against the fake S3
+   endpoint in this process (``OBJECT_STORE_ROOT=s3://``,
+   ``OBJECT_STORE_ENDPOINT``, ``AWS_*``, proxies cleared): the recipe's
+   1,400 feature files uploaded; a CoralNet export (the recipe's 200 images
+   with their points, and six more with a bad or missing header status or
+   no object key) through ``build_coralnet_manifest``, whose rows must
+   equal the recipe's hand-written manifest; the recipe's rows relabelled
+   one BA per class (the two folded classes children of the BAs they fold
+   into), their counts through ``generate_training_config --top-n 80`` with
+   the two excluded by name (80 bare labels, the two folded by rollups);
+   ``classifier_train`` on the generated directory (the operator's edits:
+   the manifest, resident bf16, the model name) with ``TRACKING_SYNC_BUCKET``
+   set: exit 0, parity <= 1e-6, a 4096 -> 80 head, no sync warning, and the
+   bucket holding the run directory and the registry entry key for key and
+   byte for byte; ``generate_report`` on the run, ``sync_tracking pull``
+   into a second root and ``generate_report`` again: equal HTML;
+   ``release_artifact`` v1 (exit 0, the registered bytes under
+   ``classifier/v1/``), v1 again (exit 1, bucket unchanged), v12 (exit 0);
+   ``annotate_image`` (in this process, so the launch counts can be read)
+   from ``store://releases/classifier/v1`` and from ``models:/``: 1 crop and
+   11 fused launches each, the same labels, scores within 2e-6; and the
+   store:// request through the smoke's extractor against ``models:/``
+   within 2e-6, 1 crop and 11 fused launches per request. Times: each CLI's
+   subprocess wall, the run's ``profiled_sections`` (its downloads over S3
+   beside the recipe phase's local ones), requests, objects and bytes
+   through the endpoint, the sync's objects and seconds (the training CLI's
+   debug log), the releases, the store:// request's p50 (host clock).
 
 Then the card's name and power limit (nvidia-smi), one JSON line of kernel
 results, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1227,7 +1258,9 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
     """The training recipe through its programmatic entry point,
     ``TrackingTrainingRunner(...).run()``, at the production head's width
     (4096 -> (500, 300, 100) -> 80, mini-batch 200, lr 1e-4) on a seeded
-    store, then the registered model served by ``models:/``."""
+    store, then the registered model served by ``models:/``. Returns the
+    seeded taxonomy, tables and store the lifecycle phase starts from, and
+    the run's ``profiled_sections``."""
     import importlib.util
     import os
 
@@ -1403,6 +1436,7 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
         + json.dumps(json.loads(run.artifact("metrics_group_seconds.json").read_text())))
     say(f"time recipe on {smi}: resident_timings: "
         + json.dumps(runner._resident_timings))
+    sections = list(runner.profiled_sections)
     runner.dataset.cleanup()
     del runner, predictor
     torch.cuda.empty_cache()
@@ -1420,6 +1454,9 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
     say(f"time recipe on {smi}: phase wall {wall:.1f} s (store and tables"
         f" {write_s:.1f} s, runner {run_s:.1f} s, CLI run and entrypoint"
         f" {cli_s:.1f} s)")
+    return {"classes": classes, "rollups": rollups, "mapping": mapping,
+            "mermaid": mermaid, "manifest": manifest, "store": base / "store",
+            "bucket": bucket, "sections": sections}
 
 
 # Figures each metric group draws, in log order, with the table that says
@@ -2592,6 +2629,469 @@ def phase_times(config, folded, results, extractor, run25, smi):
     return trunk_rates
 
 
+LIFECYCLE_MODEL = "mermaid-lifecycle-80"
+# Images of the CoralNet export the manifest must drop: (header_status,
+# s3_key) with None for a missing value ("k" stands for the image's key).
+LIFECYCLE_BAD_IMAGES = (("error", "k"), (None, "k"), ("unreadable", "k"),
+                        ("error", None), ("ok", None), ("ok", ""))
+LIFECYCLE_TOTAL, LIFECYCLE_MIN_PER_CLASS, LIFECYCLE_EPOCHS = 28_000, 100, 5
+LIFECYCLE_REQUESTS = 7  # store:// requests timed for the p50
+PROXY_VARS = ("http_proxy", "https_proxy", "HTTP_PROXY", "HTTPS_PROXY",
+              "all_proxy", "ALL_PROXY", "no_proxy", "NO_PROXY")
+S3_VARS = ("OBJECT_STORE_ENDPOINT", "AWS_REGION", "AWS_ACCESS_KEY_ID",
+           "AWS_SECRET_ACCESS_KEY", "AWS_SESSION_TOKEN")
+
+
+def lifecycle_labels(recipe: dict, fixture_dir: Path):
+    """The recipe's rows relabelled for the config generator: one BA per
+    recipe class (``lc-NN``, "Label NN" under one of RECIPE_ROOTS roots), the
+    two classes the recipe folds made children ("Folded i") of the BAs they
+    fold into, each row keeping its growth form. Writes the taxonomy fixture
+    (the mapping sends each CoralNet label to its class's BA) and returns
+    (MERMAID columns, counts rows (ba_id, gf_id, count), class BA ids)."""
+    from collections import Counter
+
+    classes, mapping = recipe["classes"], recipe["mapping"]
+    index = {c: k for k, c in enumerate(classes)}
+    ba = [f"lc-{k:02d}" for k in range(len(classes))]
+    parents = {index[src]: index[dst] for src, dst in recipe["rollups"]}
+    records = [{"id": f"lc-r{r}", "name": f"Lifecycle root {r}", "parent": None}
+               for r in range(RECIPE_ROOTS)]
+    folded = 0
+    for k in range(len(classes)):
+        if k in parents:
+            records.append({"id": ba[k], "name": f"Folded {folded}",
+                            "parent": ba[parents[k]]})
+            folded += 1
+        else:
+            records.append({"id": ba[k], "name": f"Label {k:02d}",
+                            "parent": f"lc-r{k % RECIPE_ROOTS}"})
+    gfs = {"gf-br": "branching", "gf-ma": "massive", "gf-en": "encrusting"}
+    provider = {m["provider_id"]: k for k, m in enumerate(mapping)}
+    lc_mapping = [{**m, "benthic_attribute_id": ba[k],
+                   "benthic_attribute_name": records[RECIPE_ROOTS + k]["name"]}
+                  for k, m in enumerate(mapping)]
+    fixture_dir.mkdir(parents=True, exist_ok=True)
+    (fixture_dir / "benthic_attributes.json").write_text(json.dumps(records))
+    (fixture_dir / "growth_forms.json").write_text(json.dumps(gfs))
+    (fixture_dir / "label_mappings.json").write_text(json.dumps(lc_mapping))
+
+    m = recipe["mermaid"]
+    ks = [index[(b, "" if g == "None" else g)]
+          for b, g in zip(m["benthic_attribute_id"], m["growth_form_id"])]
+    mermaid = {**m, "benthic_attribute_id": [ba[k] for k in ks]}
+    counts = Counter((ba[k], classes[k][1]) for k in ks)
+    counts.update((ba[provider[c]], classes[provider[c]][1])
+                  for c in recipe["manifest"]["coralnet_id"] if c in provider)
+    return mermaid, sorted((b, g, n) for (b, g), n in counts.items()), ba
+
+
+def coralnet_export(manifest: dict, mapping):
+    """The CoralNet ETL export behind the recipe's hand-written manifest: its
+    points as the annotation table, its images (status ok, a key each) plus
+    LIFECYCLE_BAD_IMAGES, each with RECIPE_POINTS points of its own, as the
+    image table."""
+    annotations = {k: list(v) for k, v in manifest.items()}
+    images = {"source_id": [], "image_id": [], "header_status": [], "s3_key": []}
+    for image_id in sorted(set(manifest["image_id"])):
+        images["source_id"].append(RECIPE_CN_SOURCE)
+        images["image_id"].append(image_id)
+        images["header_status"].append("ok")
+        images["s3_key"].append(f"s{RECIPE_CN_SOURCE}/i{image_id}.jpg")
+    for j, (status, key) in enumerate(LIFECYCLE_BAD_IMAGES):
+        image_id = 600_000 + j
+        images["source_id"].append(RECIPE_CN_SOURCE)
+        images["image_id"].append(image_id)
+        images["header_status"].append(status)
+        images["s3_key"].append(f"s{RECIPE_CN_SOURCE}/i{image_id}.jpg"
+                                if key == "k" else key)
+        for p in range(RECIPE_POINTS):
+            annotations["source_id"].append(RECIPE_CN_SOURCE)
+            annotations["image_id"].append(image_id)
+            annotations["row"].append(17 + 40 * p)
+            annotations["col"].append(29 + 60 * p)
+            annotations["coralnet_id"].append(mapping[p % len(mapping)]["provider_id"])
+    return annotations, images
+
+
+def fake_s3_traffic(state) -> dict:
+    """Requests, objects and bytes through the fake endpoint, from its
+    request log (an object's bytes are its size at the end of the run)."""
+    from urllib.parse import unquote, urlsplit
+
+    out = {"requests": len(state.requests), "list": 0, "head": 0, "delete": 0,
+           "put_objects": 0, "put_bytes": 0, "get_objects": 0, "get_bytes": 0}
+    for method, path in state.requests:
+        parsed = urlsplit(path)
+        bucket, _, key = parsed.path.lstrip("/").partition("/")
+        size = len(state.objects.get((bucket, unquote(key)), b""))
+        if method == "GET" and not key:
+            out["list"] += 1
+        elif method in ("GET", "PUT"):
+            out[f"{method.lower()}_objects"] += 1
+            out[f"{method.lower()}_bytes"] += size
+        else:
+            out[method.lower()] = out.get(method.lower(), 0) + 1
+    return out
+
+
+def log_seconds(log: str, start: str, end: str) -> float:
+    """Seconds between the first log line containing ``start`` and the first
+    later one containing ``end`` (the ``%(asctime)s`` stamps that open each
+    line of the training CLI's debug log)."""
+    from datetime import datetime
+
+    stamps = {}
+    for line in log.splitlines():
+        for key in (start, end):
+            if key in line and key not in stamps and (key == start or start in stamps):
+                stamps[key] = datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+    if len(stamps) != 2:
+        fail(f"lifecycle: the training log has no {start!r} ... {end!r} lines")
+    return (stamps[end] - stamps[start]).total_seconds()
+
+
+def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: str,
+                    device: str = "cuda"):
+    """What a MERMAID operator runs around a training run, through the port's
+    CLIs as subprocesses, on the fake S3 endpoint (tests/data/fake_s3_server,
+    in this process): the CoralNet export -> ``build_coralnet_manifest`` ->
+    counts -> ``generate_training_config`` -> ``classifier_train`` with the
+    store on S3 and ``TRACKING_SYNC_BUCKET`` set -> ``generate_report`` ->
+    ``sync_tracking pull`` on a second root and the report again ->
+    ``release_artifact`` v1, v1 again, v12 -> ``annotate_image`` from
+    ``store://releases/classifier/v1`` (in this process, so the kernels'
+    launch counts can be read)."""
+    import csv
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mermaid_classifier_tpu_torch.common.relational import read_parquet_columns
+    from mermaid_classifier_tpu_torch.common.taxonomy import TAXONOMY_FIXTURE_ENV
+    from mermaid_classifier_tpu_torch.config.settings import settings
+    from mermaid_classifier_tpu_torch.data.s3_store import (
+        S3Credentials,
+        S3ObjectStore,
+    )
+    from mermaid_classifier_tpu_torch.models.convert import save_backbone_npz
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.scripts import annotate_image
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from mermaid_classifier_tpu_torch.tracking import LocalTracker
+    from tests.data.fake_s3_server import make_server
+
+    t0 = time.perf_counter()
+    base = tmp / "lifecycle"
+    base.mkdir()
+    # Each store:// request downloads its artifact into a new temporary
+    # directory: keep those inside the smoke's own.
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, str(base)
+    server, state, endpoint = make_server()
+    server.socket.listen(256)  # the ETL's 50 download threads connect at once
+    walls: dict[str, float] = {}
+    try:
+        for name in PROXY_VARS:
+            os.environ.pop(name, None)
+        os.environ.update({
+            "NO_PROXY": "127.0.0.1,localhost", "OBJECT_STORE_ENDPOINT": endpoint,
+            "AWS_REGION": "us-east-1", "AWS_ACCESS_KEY_ID": "lifecycle-key",
+            "AWS_SECRET_ACCESS_KEY": "lifecycle-secret"})
+        os.environ.pop("AWS_SESSION_TOKEN", None)
+        settings.object_store_root = "s3://"
+        s3 = S3ObjectStore(endpoint, credentials=S3Credentials(
+            "lifecycle-key", "lifecycle-secret"))
+
+        # The feature files into the bucket the training run reads.
+        bucket = recipe["bucket"]
+        files = sorted(p for p in (recipe["store"] / bucket).rglob("*.npz"))
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(lambda p: s3.put_bytes(
+                bucket, p.relative_to(recipe["store"] / bucket).as_posix(),
+                p.read_bytes()), files))
+        upload_s = time.perf_counter() - t1
+        upload_bytes = sum(len(v) for (b, _), v in state.objects.items() if b == bucket)
+
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(Path(__file__).resolve().parent), env.get("PYTHONPATH")) if p)
+        env["OBJECT_STORE_ROOT"] = "s3://"
+
+        def cli(name, *args, expect=0, timeout=600):
+            argv = [sys.executable, "-m", f"mermaid_classifier_tpu_torch.scripts.{name}",
+                    *map(str, args)]
+            t = time.perf_counter()
+            proc = subprocess.run(argv, cwd=base, env=env, capture_output=True,
+                                  text=True, timeout=timeout)
+            wall = time.perf_counter() - t
+            if proc.returncode != expect:
+                print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+                fail(f"lifecycle: {name} {' '.join(map(str, args[:2]))} exited"
+                     f" {proc.returncode} (want {expect})")
+            return proc, wall
+
+        # 1. The manifest from the raw CoralNet export.
+        annotations, images = coralnet_export(recipe["manifest"], recipe["mapping"])
+        paths = base / "cn_annotations.parquet", base / "cn_images.parquet"
+        for path, cols in zip(paths, (annotations, images)):
+            pq.write_table(pa.table(cols), str(path))
+        manifest_path = base / "manifest.parquet"
+        proc, walls["build_coralnet_manifest"] = cli(
+            "build_coralnet_manifest", "--annotations-parquet", paths[0],
+            "--images-parquet", paths[1], "--output", manifest_path)
+        built = read_parquet_columns(str(manifest_path))
+        want = recipe["manifest"]
+        if {c: built[c] for c in want} != want or len(built["s3_key"]) != len(
+                want["image_id"]):
+            fail("lifecycle: the built manifest's rows differ from the recipe's"
+                 " hand-written manifest")
+        summary = (f"manifest rows out: {len(want['image_id']):,}"
+                   f" (1 sources, {len(set(want['image_id'])):,} images).")
+        if summary not in proc.stderr or "4 bad header, 2 missing key" not in proc.stderr:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            fail(f"lifecycle: build summary does not say '{summary}' with 4 bad"
+                 " headers and 2 missing keys")
+
+        # 2. The config directory from the counts and the taxonomy.
+        fixture = base / "taxonomy"
+        mermaid, counts, lc_ba = lifecycle_labels(recipe, fixture)
+        mermaid_path = base / "mermaid.parquet"
+        pq.write_table(pa.table(mermaid), str(mermaid_path))
+        counts_csv = base / "counts.csv"
+        counts_csv.write_text("ba_id,gf_id,count\n" + "".join(
+            f"{b},{g},{n}\n" for b, g, n in counts))
+        config_dir = base / "config"
+        _, walls["generate_training_config"] = cli(
+            "generate_training_config", "--counts-csv", counts_csv,
+            "--output-dir", config_dir, "--top-n", 80, "--exclude", "Folded 0",
+            "--exclude", "Folded 1", "--taxonomy-fixture-dir", fixture,
+            "--total-annotations", LIFECYCLE_TOTAL, "--min-per-class",
+            LIFECYCLE_MIN_PER_CLASS, "--epochs", LIFECYCLE_EPOCHS)
+        with (config_dir / "included_labels.csv").open() as fh:
+            included = list(csv.DictReader(fh))
+        with (config_dir / "rollups.csv").open() as fh:
+            rollup_rows = list(csv.DictReader(fh))
+        folded = {r["from_ba_id"]: r["to_ba_id"] for r in rollup_rows
+                  if r["from_ba_id"] != r["to_ba_id"]}
+        if (len(included) != 80 or any(r["gf_id"] for r in included)
+                or folded != {lc_ba[80]: lc_ba[0], lc_ba[81]: lc_ba[3]}):
+            fail(f"lifecycle: the generated config includes {len(included)} labels"
+                 f" (want 80 bare BAs) and folds {folded}")
+        # The operator's edits to the generated YAML: the manifest, and the
+        # card's training options and model name.
+        yaml_path = config_dir / "training_config.yaml"
+        text = yaml_path.read_text()
+        text = text.replace("dataset:\n", "dataset:\n  coralnet_manifest_uri:"
+                            f" '{manifest_path}'\n", 1)
+        text = text.replace("training:\n", "training:\n  device_resident: true\n"
+                            "  resident_dtype: bfloat16\n"
+                            "  calibration_backend: device\n", 1)
+        text = text.replace("tracking:\n", f"tracking:\n  model_name: {LIFECYCLE_MODEL}\n", 1)
+        yaml_path.write_text(text)
+
+        # 3. Train with the store on S3 and the tracking sync on.
+        tracking_a = base / "tracking_a"
+        env.update({
+            "TRACKING_SYNC_BUCKET": "tracking", "CORALNET_TRAIN_DATA_BUCKET": bucket,
+            "MERMAID_TRAIN_DATA_BUCKET": bucket,
+            "MERMAID_ANNOTATIONS_PARQUET_PATTERN": str(mermaid_path),
+            TAXONOMY_FIXTURE_ENV: str(fixture),
+            "FEATURE_CACHE_DIR": str(base / "feature_cache"),
+            "TRACKING_DIR": str(tracking_a)})
+        extra = ["--device", "cpu", "--allow-unpinned-torch"] if device == "cpu" else []
+        proc, walls["classifier_train"] = cli(
+            "classifier_train", "--config-dir", config_dir, "--run-name", "lifecycle",
+            *extra, timeout=900)
+        train_log = proc.stdout + proc.stderr
+        if "tracking sync to bucket" in train_log:
+            print(train_log[-6000:], file=sys.stderr)
+            fail("lifecycle: the runner's tracking sync failed (its warning is in the log)")
+        tracker = LocalTracker(tracking_a)
+        experiment = next(p.name for p in tracking_a.iterdir() if p.name != "_models")
+        run = tracker.runs(experiment)[-1]
+        metrics, params = run.latest_metrics(), run.params()
+        parity = metrics.get("export_parity_max_abs_diff")
+        if parity is None or not parity <= 1e-6:
+            fail(f"lifecycle: export parity {parity} (want <= 1e-6)")
+        registered = tracker.latest_model_version(LIFECYCLE_MODEL)
+        model_json = json.loads((registered / "model.json").read_text())
+        if model_json["input_dim"] != 4096 or len(model_json["classes"]) != 80:
+            fail(f"lifecycle: the registered head is {model_json['input_dim']} ->"
+                 f" {len(model_json['classes'])} classes (want 4096 -> 80)")
+        debug_log = max((base / "logs").glob("classifier_train_*.debug.log"))
+        sync_s = log_seconds(debug_log.read_text(), "Registered model at",
+                             "Final accuracy")
+
+        # The bucket holds the run and the registry entry, key for key.
+        def local(root: Path, prefix: str) -> dict:
+            return {f"{prefix}/{p.relative_to(root).as_posix()}": p.read_bytes()
+                    for p in sorted(root.rglob("*")) if p.is_file()}
+
+        def remote(bucket_name: str, prefix: str = "") -> dict:
+            return {k: v for (b, k), v in list(state.objects.items())
+                    if b == bucket_name and k.startswith(prefix)}
+
+        run_prefix = f"tracking/{experiment}/{run.run_id}"
+        reg_prefix = f"tracking/_models/{LIFECYCLE_MODEL}/{registered.name}"
+        for prefix, root in ((run_prefix, run.run_dir), (reg_prefix, registered)):
+            got, want_objs = remote("tracking", prefix + "/"), local(root, prefix)
+            if got != want_objs:
+                fail(f"lifecycle: bucket 'tracking' under {prefix}/ holds"
+                     f" {len(got)} objects, the local tree {len(want_objs)}, or"
+                     " their bytes differ")
+        sync_objects = len(remote("tracking"))
+
+        # 4. The report, then the run pulled on a second root and its report.
+        reports = base / "report_local.html", base / "report_pulled.html"
+        _, walls["generate_report"] = cli(
+            "generate_report", "--run-id", run.run_id, "--tracking-root", tracking_a,
+            "--output", reports[0])
+        tracking_b = base / "tracking_b"
+        _, walls["sync_tracking pull"] = cli(
+            "sync_tracking", "pull", "--bucket", "tracking", "--experiment", experiment,
+            "--run-id", run.run_id, "--dest", tracking_b)
+        _, walls["generate_report (pulled)"] = cli(
+            "generate_report", "--run-id", run.run_id, "--tracking-root", tracking_b,
+            "--output", reports[1])
+        html = [p.read_bytes() for p in reports]
+        if html[0] != html[1]:
+            fail("lifecycle: the report of the pulled run differs from the local one")
+        if b"Run report: lifecycle" not in html[0]:
+            fail("lifecycle: the report does not name the run")
+
+        # 5. The immutable release.
+        release = ["--artifact", f"models:/{LIFECYCLE_MODEL}", "--bucket", "releases",
+                   "--tracker-root", tracking_a, *(["--device", "cpu"] if device == "cpu"
+                                                   else [])]
+        _, walls["release_artifact v1"] = cli("release_artifact", "--version", "v1",
+                                              *release)
+        v1 = remote("releases")
+        want_v1 = {f"classifier/v1/{f}": (registered / f).read_bytes()
+                   for f in ("model.json", "model.npz")}
+        if v1 != want_v1:
+            fail(f"lifecycle: bucket 'releases' holds {sorted(v1)}, want"
+                 f" {sorted(want_v1)} with the registered bytes")
+        _, walls["release_artifact v1 again"] = cli(
+            "release_artifact", "--version", "v1", *release, expect=1)
+        if remote("releases") != v1:
+            fail("lifecycle: the refused v1 release changed the bucket")
+        _, walls["release_artifact v12"] = cli("release_artifact", "--version", "v12",
+                                               *release)
+        if sorted(remote("releases")) != sorted(
+                [*v1, "classifier/v12/model.json", "classifier/v12/model.npz"]):
+            fail(f"lifecycle: v12 beside v1 gives {sorted(remote('releases'))}")
+
+        # 6. Serve from store:// through the annotate_image CLI, in this
+        # process, against the same artifact from models:/.
+        rng = np.random.default_rng(SEED + 31)
+        h, w = IMAGE_HW
+        image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        image_path = base / "image.npy"
+        np.save(image_path, image)
+        pts = points(rng, 25)
+        bundle = base / "b0_weights.npz"
+        save_backbone_npz(str(bundle), variables, config)
+        settings.tracking_dir = str(tracking_a)
+        served = {}
+        for spec in ("store://releases/classifier/v1", f"models:/{LIFECYCLE_MODEL}"):
+            out = base / ("serve_store" if spec.startswith("store") else "serve_models")
+            csv_path = base / f"{out.name}.csv"
+            write_points(csv_path, pts)
+            patch_crop.launches = 0
+            fused_mbconv.launches = 0
+            t = time.perf_counter()
+            rc = annotate_image.main(["--image", str(image_path), "--points", str(csv_path),
+                                      "--classifier", spec, "--output-dir", str(out),
+                                      "--backbone-weights", str(bundle), "--device", device])
+            if device != "cpu":
+                torch.cuda.synchronize()
+            walls[f"annotate_image {spec.split(':')[0]}:"] = time.perf_counter() - t
+            launches = (patch_crop.launches, fused_mbconv.launches)
+            if rc != 0:
+                fail(f"lifecycle: annotate_image {spec} returned {rc}")
+            if device != "cpu" and launches != (1, 11):
+                fail(f"lifecycle: annotate_image {spec} launched (crop, fused)"
+                     f" {launches}, want (1, 11)")
+            with (out / "predictions.csv").open() as fh:
+                served[spec] = (list(csv.DictReader(fh)), launches)
+        (rows_s, launches_s), (rows_m, _) = served.values()
+        cli_diff = max(abs(float(a[f"score_{i}"]) - float(b[f"score_{i}"]))
+                       for a, b in zip(rows_s, rows_m) for i in (1, 2, 3))
+        if len(rows_s) != 25 or [[a[f"pred_{i}"] for i in (1, 2, 3)] for a in rows_s] != \
+                [[b[f"pred_{i}"] for i in (1, 2, 3)] for b in rows_m] or not cli_diff <= 2e-6:
+            fail(f"lifecycle: annotate_image from store:// and models:/ disagree"
+                 f" (score gap {cli_diff:.3e}, want <= 2e-6)")
+
+        # The same request through the smoke's extractor, timed: store://
+        # (download, load, request) against models:/.
+        csv_path = base / "serve_timed.csv"
+        write_points(csv_path, pts)
+        ann_m = AnnotationRun(image, csv_path, f"models:/{LIFECYCLE_MODEL}",
+                              extractor=extractor)
+        ann_m.run()
+        total_ms, run_ms = [], []
+        for _ in range(LIFECYCLE_REQUESTS):
+            t = time.perf_counter()
+            ann = AnnotationRun(image, csv_path, "store://releases/classifier/v1",
+                                extractor=extractor)
+            t_run = time.perf_counter()
+            patch_crop.launches = 0
+            fused_mbconv.launches = 0
+            ann.run()
+            launches = (patch_crop.launches, fused_mbconv.launches)
+            now = time.perf_counter()
+            total_ms.append((now - t) * 1e3)
+            run_ms.append((now - t_run) * 1e3)
+            if device != "cpu" and launches != (1, 11):
+                fail(f"lifecycle: the store:// request launched {launches}, want (1, 11)")
+        diff = float(np.abs(ann.proba - ann_m.proba).max())
+        if not diff <= 2e-6:
+            fail(f"lifecycle: store:// scores {diff:.3e} from models:/ (want <= 2e-6)")
+        traffic = fake_s3_traffic(state)
+    finally:
+        server.shutdown()
+        server.server_close()
+        tempfile.tempdir = saved_tempdir
+
+    with run.artifact("profiled_sections.csv").open() as fh:
+        sections = {r["name"]: float(r["seconds"]) for r in csv.DictReader(fh)}
+    recipe_sections = {r["name"]: float(r["seconds"]) for r in recipe["sections"]}
+    say(f"lifecycle: {len(files)} feature files ({upload_bytes / 1e9:.3f} GB) into the"
+        f" fake S3 endpoint in {upload_s:.1f} s; build_coralnet_manifest: {summary}"
+        f" the rows equal the recipe's hand-written manifest; generate_training_config:"
+        f" 80 labels, {len(rollup_rows)} rollups, Folded 0/1 into {lc_ba[0]}/{lc_ba[3]}")
+    say(f"lifecycle: classifier_train --config-dir (store s3://, TRACKING_SYNC_BUCKET"
+        f" tracking): exit 0; accuracy {metrics['accuracy']}; export parity"
+        f" {parity:.3e}; artifact_eval_inputs {params.get('artifact_eval_inputs')};"
+        f" registered {registered.parent.name}/{registered.name}; the bucket holds"
+        f" the run and the registry entry key for key ({sync_objects} objects)")
+    say(f"lifecycle: report of the pulled run equals the local report"
+        f" ({len(html[0]):,} bytes); release v1 exit 0, v1 again exit 1 with the"
+        f" bucket unchanged, v12 exit 0")
+    say(f"lifecycle: annotate_image from store://releases/classifier/v1 launches"
+        f" crop={launches_s[0]} fused={launches_s[1]}, predictions equal models:/"
+        f" (score gap {cli_diff:.1e}); store:// request vs models:/ max |dp| {diff:.3e}"
+        f" (<= 2e-6)")
+    numbers = {
+        "cli_wall_s": {k: round(v, 3) for k, v in walls.items()},
+        "profiled_sections_s": sections,
+        "feature_downloads_s": {"s3": sections.get("Downloading feature vectors"),
+                                "recipe_local": recipe_sections.get(
+                                    "Downloading feature vectors")},
+        "fake_s3": {**traffic, "upload_s": round(upload_s, 3)},
+        "sync": {"objects": sync_objects, "seconds": sync_s},
+        "release_s": {k.split(" ", 1)[1]: round(v, 3) for k, v in walls.items()
+                      if k.startswith("release_artifact")},
+        "store_request_p50_ms": round(sorted(total_ms)[len(total_ms) // 2], 3),
+        "store_request_run_p50_ms": round(sorted(run_ms)[len(run_ms) // 2], 3),
+        "phase_wall_s": round(time.perf_counter() - t0, 1),
+    }
+    say(f"time lifecycle on {smi}: {json.dumps(numbers)}")
+
+
 def main() -> None:
     import torch
 
@@ -2626,8 +3126,11 @@ def main() -> None:
         phase_train(extractor, Path(tmp), smi)
         phase_trainer(extractor, Path(tmp), smi)
         with restored_env(TAXONOMY_FIXTURE_ENV):
-            phase_recipe(extractor, Path(tmp), smi)
+            recipe = phase_recipe(extractor, Path(tmp), smi)
         phase_trunk_ab(variables, config, results)
+        with restored_env(TAXONOMY_FIXTURE_ENV, *PROXY_VARS, *S3_VARS), \
+                restored_settings("object_store_root", "tracking_dir"):
+            phase_lifecycle(variables, config, extractor, recipe, Path(tmp), smi)
 
     sources = {
         "patch_crop": ("mermaid_classifier_tpu_torch/csrc/patch_crop.cu",

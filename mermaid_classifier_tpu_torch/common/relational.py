@@ -15,8 +15,11 @@ string in a TEXT column), and so do ``IS``, ``ORDER BY`` and ``CAST``; and
 an ORDER BY over keys with ties returns the tied rows in insertion order,
 so the same inserts give the same rows in the same order as the JAX engine.
 
-Parquet is read by ``read_parquet_columns`` alone, which imports
-``pyarrow.parquet`` when called.
+Parquet is read by ``read_parquet_columns`` alone, and written by
+``write_parquet_table`` alone, each importing pyarrow when called. The
+writer gives each column the arrow type ``pa.Table.from_pandas`` gives it
+for the same query result (``arrow_type_name``), without pandas' schema
+metadata block, which names the pandas and pyarrow versions.
 
 Determinism contract: every subsetting operation must ORDER BY an explicit
 key; helpers here never emit un-ordered LIMITs.
@@ -88,6 +91,42 @@ def read_parquet_columns(path: str) -> dict[str, list]:
             values = [None if v is None else float(v) for v in values]
         out[name] = values
     return out
+
+
+def arrow_type_name(values: list) -> str:
+    """The arrow type ``pa.Table.from_pandas(pd.read_sql_query(...))`` gives
+    a column of sqlite values: "int64" for ints, "double" for floats and for
+    ints with a missing value (None), "large_string" for strings (pandas 3's
+    str dtype), "null" for a column with no value. Any other mix raises, as
+    pyarrow does."""
+    kinds, _, _ = value_kinds(values)
+    if not kinds:
+        return "null"
+    if kinds == {"int"} and None not in values:
+        return "int64"
+    if kinds <= {"int", "float"}:
+        return "double"
+    if kinds == {"str"}:
+        return "large_string"
+    raise TypeError(f"a column mixes {sorted(kinds)}: no arrow type holds it")
+
+
+def write_parquet_table(data: Any, path: str) -> None:
+    """Write a Table (or records, or a dict of columns) as parquet, each
+    column typed by ``arrow_type_name`` (an int column with a missing value
+    written as floats)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = as_table(data)
+    arrays = []
+    for name in table.columns:
+        values = table.column(name)
+        kind = arrow_type_name(values)
+        if kind == "double":  # NaN is a missing value, as from_pandas has it
+            values = [None if v is None or v != v else float(v) for v in values]
+        arrays.append(pa.array(values, type=pa.type_for_alias(kind)))
+    pq.write_table(pa.Table.from_arrays(arrays, names=table.columns), path)
 
 
 def pandas_str(values: list) -> list:
@@ -191,13 +230,7 @@ class Database:
         self.create_table(table, read_parquet_columns(path))
 
     def write_parquet(self, sql_or_table: str, path: str) -> None:
-        import pyarrow as pa
-        import pyarrow.parquet as pq
-
-        result = self.query(self._select(sql_or_table))
-        pq.write_table(
-            pa.table({c: result.column(c) for c in result.columns}), path
-        )
+        write_parquet_table(self.query(self._select(sql_or_table)), path)
 
     def write_csv(self, sql_or_table: str, path: str) -> None:
         from mermaid_classifier_tpu_torch.common.table import to_csv_text

@@ -134,8 +134,8 @@ class Settings:
     # Local experiment-tracking root directory.
     tracking_dir: str | None = None
     default_experiment_name: str | None = None
-    # Mirroring finished runs into a store bucket (tracking/store_sync.py)
-    # is not ported; the runner raises when it is set.
+    # When set, each training run mirrors itself (and the model registry)
+    # into this bucket of the default object store (tracking/store_sync.py).
     tracking_sync_bucket: str | None = None
 
     def __setattr__(self, name: str, value: typing.Any) -> None:

@@ -11,8 +11,8 @@ the two disciplines that make the at-scale extraction resumable:
 ``get_default_store`` takes its root from ``settings.object_store_root``
 only, as the JAX package does: ``OBJECT_STORE_ROOT`` in the environment or
 a ``.env`` file when the settings are read (``reload_settings_from_env``
-re-reads them), or ``override_settings``. The S3 backend (``s3_store``) is
-not ported: an ``s3://`` root raises.
+re-reads them), or ``override_settings``. An ``s3://`` root gives the
+stdlib-HTTP S3 backend (``s3_store``).
 """
 
 from __future__ import annotations
@@ -150,8 +150,10 @@ class LocalFSObjectStore(ObjectStore):
 def get_default_store() -> ObjectStore:
     """The store at ``settings.object_store_root`` (``OBJECT_STORE_ROOT`` in
     the environment or ``.env`` when the settings were read, or
-    ``override_settings``): a local-FS root. An ``s3://`` root raises,
-    because the S3 backend is not in this package."""
+    ``override_settings``): an ``s3://`` root returns the stdlib-HTTP S3
+    backend (endpoint, region and credentials from the environment, see
+    ``s3_store.s3_store_from_settings_and_env``), anything else is a
+    local-FS root."""
     from mermaid_classifier_tpu_torch.config.settings import settings
 
     root = settings.object_store_root
@@ -161,10 +163,11 @@ def get_default_store() -> ObjectStore:
             " or inject an ObjectStore explicitly."
         )
     if root.startswith("s3://"):
-        raise ObjectStoreError(
-            f"OBJECT_STORE_ROOT={root!r}: the S3 backend (s3_store) is not"
-            " ported to this package; use a local-filesystem root."
+        from mermaid_classifier_tpu_torch.data.s3_store import (
+            s3_store_from_settings_and_env,
         )
+
+        return s3_store_from_settings_and_env()
     return LocalFSObjectStore(root)
 
 

@@ -10,13 +10,14 @@ The port of ``mermaid_classifier_tpu/train/runner.py``:
   the eval-the-artifact ordering: export the deployable npz artifact
   parity-gated (1e-6) on the first val batch, reload it with the public
   loader, compute the metrics against the SHIPPED predictor (through the
-  resident gather when the val rows are on the device), and register it.
+  resident gather when the val rows are on the device), register it, and,
+  when ``settings.tracking_sync_bucket`` is set, mirror the run and the
+  registry into that bucket of the default store (best-effort, as in JAX).
 
-Not ported, each raising where it is asked for: the data-parallel mesh
-(``settings.train_mesh_devices``) and the store mirror of
-finished runs (``settings.tracking_sync_bucket``, ``tracking/store_sync.py``).
-The packed feature cache is not passed to the trainer; the
-run logs the param ``packed_feature_cache`` as "not ported".
+Not ported, raising where it is asked for: the data-parallel mesh
+(``settings.train_mesh_devices``). The packed feature cache is not passed
+to the trainer; the run logs the param ``packed_feature_cache`` as "not
+ported".
 """
 
 from __future__ import annotations
@@ -239,12 +240,6 @@ class TrackingTrainingRunner(TrainingRunner):
         **kwargs,
     ):
         super().__init__(*args, **kwargs)
-        if settings.tracking_sync_bucket:
-            raise NotImplementedError(
-                f"tracking_sync_bucket={settings.tracking_sync_bucket!r}:"
-                " mirroring runs into the object store (tracking/store_sync.py)"
-                " is not ported"
-            )
         self.tracking_options = tracking_options or TrackingOptions()
         if tracker is None:
             from mermaid_classifier_tpu_torch.tracking.local_tracker import (
@@ -365,6 +360,31 @@ class TrackingTrainingRunner(TrainingRunner):
                         self.dataset.cleanup()
 
         logger.info("Registered model at: %s", registered_version)
+
+        # Remote tracking: mirror the finished run (and the registry entry)
+        # into the object store when a sync bucket is configured. Never
+        # fatal: the local run is complete either way.
+        if settings.tracking_sync_bucket:
+            try:
+                from mermaid_classifier_tpu_torch.data.store import get_default_store
+                from mermaid_classifier_tpu_torch.tracking.store_sync import (
+                    sync_registry_to_store,
+                    sync_run_to_store,
+                )
+
+                store = get_default_store()
+                # Just this run + the registry: a whole-tracker sync would
+                # re-probe every historical object on every run.
+                sync_run_to_store(run, store, settings.tracking_sync_bucket)
+                sync_registry_to_store(
+                    self.tracker, store, settings.tracking_sync_bucket
+                )
+            except Exception:  # noqa: BLE001 - sync is best-effort
+                logger.warning(
+                    "tracking sync to bucket %r failed",
+                    settings.tracking_sync_bucket,
+                    exc_info=True,
+                )
         return return_msg, registered_version
 
     def _eval_and_register(

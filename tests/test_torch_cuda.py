@@ -946,3 +946,109 @@ def test_classifier_train_cli_on_cuda(cuda, tmp_path, monkeypatch):
     assert (named is None) == bool(pngs)
     assert "confusion_matrix/frequencies.png" in (pngs or named.split(", "))
     assert tracker.latest_model_version("card-cli").name == "v1"
+
+
+# --- the release flow on the card ----------------------------------------------
+
+
+def _card_artifact(cuda, out_dir, dim, k=6, seed=8):
+    """A small head trained on the card, exported through the 1e-6 gate
+    with the torch pin enforced."""
+    from mermaid_classifier_tpu_torch.inference import export_artifact
+    from mermaid_classifier_tpu_torch.train.calibration import CalibratedClassifier
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+
+    X, y = _train_data(600, dim, k, seed=seed)
+    clf = MLPClassifier((32,), random_state=0, learning_rate_init=1e-3, device=cuda)
+    for _ in range(2):
+        clf.partial_fit(X, y, classes=np.unique(y))
+    model = CalibratedClassifier.fit_from_scores(
+        clf, clf.predict_proba(X[:300]), y[:300], backend="device", device=cuda)
+    export_artifact(model, out_dir, X[300:364])
+    return out_dir
+
+
+def test_validate_artifact_on_cuda(cuda, tmp_path):
+    """``validate_artifact`` loads the artifact on the card; the release
+    publishes once, refuses the same version, and a tampered manifest is
+    refused before any write."""
+    import json
+    import shutil
+
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+    from mermaid_classifier_tpu_torch.serve.release import (
+        ReleaseError,
+        release_artifact,
+        validate_artifact,
+    )
+
+    artifact = _card_artifact(cuda, tmp_path / "artifact", 64)
+    manifest = validate_artifact(artifact, device=cuda)
+    assert len(manifest["classes"]) == 6
+    store = LocalFSObjectStore(tmp_path / "store")
+    assert sorted(release_artifact(store, "rel", "v1", artifact, device=cuda)) == [
+        "classifier/v1/model.json", "classifier/v1/model.npz"]
+    with pytest.raises(ReleaseError, match="immutable"):
+        release_artifact(store, "rel", "v1", artifact, device=cuda)
+    bad = tmp_path / "bad"
+    shutil.copytree(artifact, bad)
+    data = json.loads((bad / "model.json").read_text())
+    data["input_dim"] = 65
+    (bad / "model.json").write_text(json.dumps(data))
+    with pytest.raises(ReleaseError, match="load validation"):
+        release_artifact(store, "rel", "v2", bad, device=cuda)
+    assert sorted(store.list_keys("rel")) == [
+        "classifier/v1/model.json", "classifier/v1/model.npz"]
+
+
+def test_store_release_request_launches_on_cuda(cuda, tmp_path, monkeypatch):
+    """A release published to an S3 bucket (the fake endpoint) serves a
+    ``store://`` request on the card through 1 crop and 11 fused launches
+    per 25-point request at B0 224, at the probabilities of the same
+    artifact served from ``models:/``."""
+    from mermaid_classifier_tpu_torch.config.settings import override_settings
+    from mermaid_classifier_tpu_torch.data.store import get_default_store
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from mermaid_classifier_tpu_torch.serve.release import release_artifact
+    from mermaid_classifier_tpu_torch.tracking import LocalTracker
+    from tests.data.fake_s3_server import make_server
+
+    config = CONFIGS["b0_224"]
+    artifact = _card_artifact(cuda, tmp_path / "artifact", config.feature_dim)
+    tracker = LocalTracker(tmp_path / "tracking")
+    tracker.register_model("card-release", [artifact / "model.npz",
+                                            artifact / "model.json"])
+    server, state, endpoint = make_server()
+    try:
+        for name, value in (("OBJECT_STORE_ENDPOINT", endpoint),
+                            ("AWS_ACCESS_KEY_ID", "AK"), ("AWS_SECRET_ACCESS_KEY", "SK"),
+                            ("NO_PROXY", "127.0.0.1,localhost")):
+            monkeypatch.setenv(name, value)
+        with override_settings(object_store_root="s3://"):
+            release_artifact(get_default_store(), "releases", "v1", artifact,
+                             device=cuda)
+            assert sorted(k for (b, k) in state.objects if b == "releases") == [
+                "classifier/v1/model.json", "classifier/v1/model.npz"]
+            extractor = build_extractor(
+                _perturbed_variables(config, np.random.default_rng(9)), config,
+                device=cuda)
+            rng = np.random.default_rng(10)
+            image = rng.integers(0, 256, (1536, 2048, 3), dtype=np.uint8)
+            points = tmp_path / "points.csv"
+            points.write_text("row,col\n" + "".join(
+                f"{r},{c}\n" for r, c in zip(rng.integers(0, 1536, 25),
+                                             rng.integers(0, 2048, 25))))
+            runs = []
+            for spec in ("store://releases/classifier/v1", "models:/card-release"):
+                ann = AnnotationRun(image, points, spec, extractor=extractor,
+                                    tracker_root=tracker.root)
+                patch_crop.launches = 0
+                fm.launches = 0
+                ann.run()
+                torch.cuda.synchronize()
+                runs.append((ann.proba, patch_crop.launches, fm.launches))
+    finally:
+        server.shutdown()
+    (p0, c0, f0), (p1, c1, f1) = runs
+    assert (c0, f0) == (c1, f1) == (1, 11)
+    assert np.abs(p0 - p1).max() <= 2e-6

@@ -45,7 +45,7 @@ def test_port_imports_no_jax_pandas_or_pil():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 70
+    assert int(n_modules) >= 83
     assert bad.strip() == "[]", bad
 
 

@@ -265,9 +265,27 @@ def test_registry_versions_and_models_spec(env):
 
 
 def test_unported_settings_raise(env):
+    """The data-parallel mesh is still not ported and raises. The store
+    mirror is ported now: with ``tracking_sync_bucket`` set, the run trains
+    and mirrors itself and the registry into the default store, key for key
+    and byte for byte, where it used to raise."""
     with override_settings(train_mesh_devices=2):
         with pytest.raises(NotImplementedError, match="device mesh is not ported"):
             run_port(env, False, env[3] / "t1")
-    with override_settings(tracking_sync_bucket="trk"):
-        with pytest.raises(NotImplementedError, match="store_sync"):
-            run_port(env, False, env[3] / "t2")
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+
+    sync_root = env[3] / "sync_store"
+    with override_settings(tracking_sync_bucket="trk",
+                           object_store_root=str(sync_root)):
+        _, _, registered = run_port(env, False, env[3] / "t2")
+    tracker = TTracker(env[3] / "t2")
+    run = _only_run(tracker)
+    local = {
+        f"tracking/{p.relative_to(tracker.root).as_posix()}": p.read_bytes()
+        for p in sorted(tracker.root.rglob("*")) if p.is_file()
+    }
+    store = LocalFSObjectStore(sync_root)
+    remote = {k: store.get_bytes("trk", k) for k in store.list_keys("trk")}
+    assert remote == local
+    assert f"tracking/recipe/{run.run_id}/meta.json" in remote
+    assert f"tracking/_models/reef-mlp/{registered.name}/model.npz" in remote

@@ -3,8 +3,8 @@
 package give the same results and the same errors. Also the port's
 ``get_default_store`` from its settings (``OBJECT_STORE_ROOT`` in the
 environment or a ``.env`` file once the settings are read, or
-``override_settings``, which wins) as the JAX one reads it, and its
-``s3://`` error."""
+``override_settings``, which wins) as the JAX one reads it: unset, it
+raises; an ``s3://`` root gives the S3 backend, as in JAX."""
 
 import os
 import stat
@@ -228,6 +228,14 @@ def test_default_store_unset_and_s3_raise(monkeypatch):
     with tset.override_settings(object_store_root=None):
         with pytest.raises(tstore.ObjectStoreError, match="OBJECT_STORE_ROOT"):
             tstore.get_default_store()
-    with tset.override_settings(object_store_root="s3://reef-bucket"):
-        with pytest.raises(tstore.ObjectStoreError, match="s3_store"):
-            tstore.get_default_store()
+    # The name is older than the S3 port: an s3:// root no longer raises, it
+    # gives the S3 backend with the endpoint the JAX store reads.
+    from mermaid_classifier_tpu.data.s3_store import S3ObjectStore as JS3
+    from mermaid_classifier_tpu_torch.data.s3_store import S3ObjectStore as TS3
+
+    monkeypatch.setenv("OBJECT_STORE_ENDPOINT", "http://127.0.0.1:1")
+    with tset.override_settings(object_store_root="s3://reef-bucket"), \
+            jset.override_settings(object_store_root="s3://reef-bucket"):
+        port, jax = tstore.get_default_store(), jstore.get_default_store()
+    assert isinstance(port, TS3) and isinstance(jax, JS3)
+    assert (port.endpoint, port.region) == (jax.endpoint, jax.region)
