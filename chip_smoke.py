@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve path, its bulk extraction lane, its
-head-training lane, its trainer, its training recipe (ETL -> resident train
--> gated export -> nine metric groups -> registry -> ``models:/`` serve,
-programmatically and through the ``classifier_train`` YAML CLI), its
-full-trunk A/B harness and the operator's lifecycle around a training run
-(CoralNet manifest, generated config, S3 store, tracking sync, report,
-release, ``store://`` serve) on one CUDA card and check them.
+"""Drive the PyTorch port's serve path, its backbone-weight landing strip
+(a pyspacer-lineage checkpoint -> ``diff_backbone`` -> release -> serve),
+its bulk extraction lane, its head-training lane, its trainer (with the
+packed feature cache), the composed quality check, its training recipe
+(ETL -> resident train -> gated export -> nine metric groups -> registry ->
+``models:/`` serve, programmatically and through the ``classifier_train``
+YAML CLI), its full-trunk A/B harness and the operator's lifecycle around a
+training run (CoralNet manifest, generated config, S3 store, tracking sync,
+report, release, ``store://`` serve) on one CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin) and
-``nvidia-smi``; it imports only the port (``mermaid_classifier_tpu_torch``),
-torch, numpy, (through the port's calibration) scipy, pyarrow (to write the
-recipe's annotation tables as production has them), the repository's
-stdlib fake S3 endpoint (``tests/data/fake_s3_server.py``) and, where it is
-installed, Pillow, and exits non-zero at the first failed phase.
+It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin), ``g++``
+(the packed cache's row gather) and ``nvidia-smi``; it imports only the
+port (``mermaid_classifier_tpu_torch``), torch, numpy, (through the port's
+calibration) scipy, pyarrow (to write the recipe's annotation tables as
+production has them), the repository's stdlib fake S3 endpoint
+(``tests/data/fake_s3_server.py``), its torch-only rebuild of the
+pyspacer-lineage EfficientNet (``tests/parity/foreign_checkpoints.py``)
+and, where it is installed, Pillow, and exits non-zero at the first failed
+phase.
 
 Phases, one output line each:
 
@@ -104,7 +109,11 @@ Phases, one output line each:
    points (80 class means plus noise), split 0.7 / 0.15 / 0.15: resident
    f32 for 3 epochs with early stopping (patience 2) and the device
    calibration solve; val loss finite, ref accuracy >= 0.9; its first
-   epoch's weights equal a streamed trainer's epoch bit for bit; calibrated
+   epoch's weights equal a streamed trainer's epoch bit for bit; two
+   streamed runs of 2 epochs over the first 480 files (12,000 rows, split
+   again), with ``packed_cache_dir`` and without it: the native row gather
+   in use, loss curve and weights bit for bit equal, the packing seconds
+   and seconds per streamed epoch printed; calibrated
    val rows sum to 1 within 1e-6. Resident bf16 and int8 for 2 epochs: each
    calibrated model over its stored val rows against the f32 rows, and its
    calibrated val probabilities against the f32 run's, min row cosine >=
@@ -192,6 +201,29 @@ Phases, one output line each:
    beside the recipe phase's local ones), requests, objects and bytes
    through the endpoint, the sync's objects and seconds (the training CLI's
    debug log), the releases, the store:// request's p50 (host clock).
+
+14. weights — the fidelity runbook at B0 224, feature_dim 4096 (after
+   ``bucket``): a pyspacer-lineage ``efficientnet.pt`` (lukemelas naming in
+   CoralNet's ``{'net': {'module.<key>': ...}}`` dict, TF-SAME padding, BN
+   eps 1e-3, random weights from a seed) through the port's
+   ``diff_backbone --device cuda --save-npz --record`` in a subprocess:
+   exit 0, 212 layers each within 5e-4, feature MAE < 1e-4;
+   ``release_artifact`` (in this process) with the bundle, its sidecar and
+   the record: accepted, and a copy of the bundle with one byte flipped
+   refused (exit 1); a 25-point ``AnnotationRun`` from
+   ``store://releases/classifier/v1`` over the released bundle in f32 and
+   bf16: 1 crop and 11 fused launches each, features against
+   ``LukemelasEfficientNetB0.forward`` on pyspacer's own crops f32 MAE <
+   1e-4 and bf16 min row cosine >= 0.999. Times: the diff's subprocess
+   wall, the release, the phase, and the request's p50 (host clock).
+15. quality — the composed chain of ``train/quality_parity.py`` (after
+   ``trainer``): ``run_repo_pipeline`` at the CI ``QualityRunSpec()`` on
+   the card and on the CPU, the card within the JAX test's bands of the
+   CPU (accuracy 0.02, balanced accuracy 0.04, log loss 0.10) and its log
+   loss under 0.7 x uniform; then ``quality_parity_bench --repo-only`` at
+   its default scale (40,000 x 512, 30 classes) on the card, printing its
+   accuracy, balanced accuracy, log loss and wall seconds. sklearn is not
+   on the card, so the sklearn side runs in the CPU tests only.
 
 Then the card's name and power limit (nvidia-smi), one JSON line of kernel
 results, and as the last line ``{"ok": true, "device": {...}}``.
@@ -913,6 +945,61 @@ def same_weights(a, b) -> bool:
                zip(a.coefs_ + a.intercepts_, b.coefs_ + b.intercepts_))
 
 
+TRAINER_PACKED_IMAGES, TRAINER_PACKED_EPOCHS = 480, 2
+
+
+def trainer_packed(labels, kw, tmp: Path, smi: str):
+    """Streamed runs over the first TRAINER_PACKED_IMAGES feature files
+    (12,000 rows of 4096, split again 0.7 / 0.15 / 0.15), with
+    ``packed_cache_dir`` and without it: the
+    same loss curve and weights bit for bit, the native row gather in use,
+    the packing seconds and the seconds per streamed epoch of each."""
+    import numpy as np
+
+    from mermaid_classifier_tpu_torch.data.labels import (
+        ImageLabels,
+        preprocess_labels,
+    )
+    from mermaid_classifier_tpu_torch.native.fastbatch import native_available
+    from mermaid_classifier_tpu_torch.train.trainer import MermaidTrainer
+
+    if not native_available():
+        fail("trainer: the packed cache's native row gather did not build (g++)")
+    points_of: dict = {}
+    for split in ("train", "ref", "val"):
+        for key, anns in getattr(labels, split).data.items():
+            points_of.setdefault(key, []).extend(anns)
+    keep = sorted(points_of)[:TRAINER_PACKED_IMAGES]
+    runs = {}
+    for packed in (False, True):
+        task = preprocess_labels(ImageLabels({k: points_of[k] for k in keep}),
+                                 split_ratios=(0.15, 0.15))
+        stamps = []
+        trainer = MermaidTrainer(
+            **kw, packed_cache_dir=str(tmp / "packed_cache") if packed else None,
+            on_epoch_end=lambda m, stamps=stamps: stamps.append(time.perf_counter()))
+        t0 = time.perf_counter()
+        cal, _, msg = trainer(task, TRAINER_PACKED_EPOCHS, pc_models=[])
+        start = t0 + (trainer.packing_seconds or 0.0)
+        epochs = np.diff([start, *stamps])
+        if packed and not task.train.packed_cache.use_native:
+            fail("trainer: the packed run gathered with numpy, not natively")
+        runs[packed] = (cal.estimator, msg, trainer.packing_seconds, epochs)
+    (plain, pm, _, pe), (fast, fm_, pack_s, fe) = runs[False], runs[True]
+    if not (same_weights(plain, fast) and plain.loss_curve_ == fast.loss_curve_
+            and pm.ref_accs == fm_.ref_accs):
+        fail("trainer: the packed streamed run differs from the file-backed one;"
+             " want bitwise")
+    n_rows = sum(len(points_of[k]) for k in keep)
+    say(f"time trainer packed cache on {smi}: streamed runs over {len(keep)} files"
+        f" ({n_rows} rows of {plain.coefs_[0].shape[0]}), {TRAINER_PACKED_EPOCHS}"
+        f" epochs each, loss curve and weights bitwise equal, native gather:"
+        f" packing {pack_s:.2f} s; s per streamed epoch (train batches + ref and"
+        f" val evals, host clock) from the files"
+        f" {', '.join(f'{e:.2f}' for e in pe)}, from the packed cache"
+        f" {', '.join(f'{e:.2f}' for e in fe)}")
+
+
 def phase_trainer(extractor, tmp: Path, smi: str):
     """MermaidTrainer at the production head's width on seeded feature
     files: resident f32 (its first epoch against a streamed epoch, bit for
@@ -1014,6 +1101,7 @@ def phase_trainer(extractor, tmp: Path, smi: str):
         f" cosine against f32: bf16 {cos['bfloat16']:.6f}, int8 {cos['int8']:.6f}"
         f" (>= 0.999); the resident f32 first epoch equals a streamed epoch bit"
         f" for bit (the streamed run took {streamed_s:.2f} s)")
+    trainer_packed(labels, kw, tmp, smi)
 
     # The captured step against the eager step, from the same state.
     idx, y = next(labels.train.iter_index_batches(batch_size=TRAINER_BATCH))
@@ -3092,6 +3180,278 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
     say(f"time lifecycle on {smi}: {json.dumps(numbers)}")
 
 
+WEIGHTS_POINTS, WEIGHTS_REQUESTS = 25, 7
+REPO = Path(__file__).resolve().parent
+# The JAX quality test's bands (tests/train/test_quality_parity.py:28-30):
+# accuracy, balanced accuracy, log loss.
+QUALITY_BANDS = (0.02, 0.04, 0.10)
+
+
+class KeepFeatures:
+    """An extractor that keeps the device features of its last call, so a
+    phase can hold a served request's features against an oracle."""
+
+    def __init__(self, extractor):
+        self.extractor = extractor
+        self.device = extractor.device
+        self.features = None
+
+    def extract_features_device(self, image, rowcols):
+        self.features = self.extractor.extract_features_device(image, rowcols)
+        return self.features
+
+
+def small_head_artifact(out_dir: Path, dim: int) -> None:
+    """A trained, calibrated and exported head (the release gate wants a
+    ``trained_with`` block): 4096 -> 64 -> 10 on 4,000 seeded rows."""
+    import numpy as np
+
+    from mermaid_classifier_tpu_torch.inference import export_artifact
+    from mermaid_classifier_tpu_torch.train.calibration import CalibratedClassifier
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+
+    rng = np.random.default_rng(SEED + 21)
+    means = (rng.standard_normal((10, dim)) * TRAIN_MEAN_STD).astype(np.float32)
+    y = rng.integers(0, 10, 4000)
+    X = rng.standard_normal((4000, dim), dtype=np.float32) + means[y]
+    names = np.array([f"ba-{i}::gf-{i % 3}" for i in range(10)])
+    clf = MLPClassifier((64,), learning_rate_init=1e-3, random_state=0,
+                        device="cuda")
+    for _ in range(3):
+        clf.partial_fit(X, names[y], classes=list(names))
+    cal = CalibratedClassifier.fit_from_scores(
+        clf, clf.predict_proba(X[:1000]), names[y][:1000], device="cuda")
+    export_artifact(cal, out_dir, X[:256])
+
+
+def pyspacer_crops(image, pts, ps: int):
+    """The pyspacer crops of ``pts``, written apart from the port's crop: the
+    image in a ps // 2 zero border, a ps x ps window per point, ToTensor and
+    Normalize (``tests/parity/foreign_checkpoints.pyspacer_transformation``),
+    as one NCHW float32 batch."""
+    import numpy as np
+    import torch
+
+    from tests.parity.foreign_checkpoints import pyspacer_transformation
+
+    half = ps // 2
+    padded = np.pad(image, ((half, half), (half, half), (0, 0)))
+    return torch.stack([pyspacer_transformation(padded[r:r + ps, c:c + ps])
+                        for r, c in pts])
+
+
+def phase_weights(tmp: Path, smi: str):
+    """The fidelity runbook on the card, at the full B0 224 width with
+    feature_dim 4096: a pyspacer-lineage efficientnet.pt -> the port's
+    diff_backbone (all green) -> release_artifact with the bundle, sidecar
+    and record (accepted; a tampered bundle refused) -> 25-point requests
+    over the released bundle through the crop and fused kernels, held
+    against the lukemelas forward on the same crops."""
+    import dataclasses
+    import logging
+
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.config.settings import override_settings
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+    from mermaid_classifier_tpu_torch.models.convert import load_backbone_bundle
+    from mermaid_classifier_tpu_torch.models.extractor import build_extractor
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.ops.fused_mbconv import full_f32
+    from mermaid_classifier_tpu_torch.scripts import release_artifact
+    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
+    from tests.parity.foreign_checkpoints import (
+        build_lukemelas_b0,
+        save_pyspacer_efficientnet_pt,
+    )
+
+    phase_t0 = time.perf_counter()
+    work = tmp / "weights"
+    work.mkdir()
+    model = build_lukemelas_b0(seed=SEED + 20)
+    pt = work / "efficientnet.pt"
+    save_pyspacer_efficientnet_pt(model, pt)
+    npz, record_path = work / "backbone.npz", work / "fidelity.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.diff_backbone",
+         str(pt), "--device", "cuda", "--save-npz", str(npz),
+         "--record", str(record_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    diff_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"weights: diff_backbone exit {proc.returncode}:\n{proc.stdout[-3000:]}"
+             f"\n{proc.stderr[-2000:]}")
+    record = json.loads(record_path.read_text())
+    layers = []
+    for line in proc.stdout.splitlines():
+        parts = line.split()
+        if len(parts) == 3 and parts[2] in ("ok", "FAIL"):
+            layers.append((float(parts[1]), parts[0]))
+    layers.sort(reverse=True)
+    if not (record["all_green"] and record["naming_scheme"] == "lukemelas"
+            and record["padding"] == "tf_same" and record["bn_eps"] == 1e-3
+            and len(layers) == record["n_layers_compared"] == 212
+            and layers[0][0] <= 5e-4 and record["feature_mae"] < 1e-4):
+        fail(f"weights: fidelity record {record}, worst layers {layers[:3]}")
+    say(f"weights: diff_backbone --device cuda on a pyspacer-lineage"
+        f" efficientnet.pt ({{'net': {{'module.<key>'}}}}, lukemelas naming ->"
+        f" tf_same, eps 1e-3): {record['n_layers_compared']} layers all green in"
+        f" {diff_s:.1f} s (subprocess); per-layer worst |d| "
+        + ", ".join(f"{name} {v:.3e}" for v, name in layers[:3])
+        + f" (<= 5e-4); feature MAE {record['feature_mae']:.3e} (< 1e-4)")
+
+    head = work / "head"
+    small_head_artifact(head, 4096)
+    sidecar = work / "backbone.config.json"
+    store = LocalFSObjectStore(work / "store")
+    tampered = work / "tampered" / "backbone.npz"
+    tampered.parent.mkdir()
+    data = bytearray(npz.read_bytes())
+    data[len(data) // 2] ^= 1
+    tampered.write_bytes(bytes(data))
+    (tampered.parent / sidecar.name).write_bytes(sidecar.read_bytes())
+    root = logging.getLogger()
+    saved_logging = root.level, list(root.handlers)
+    with override_settings(object_store_root=str(work / "store")):
+        t0 = time.perf_counter()
+        rc = release_artifact.main([
+            "--version", "v1", "--artifact", str(head), "--bucket", "releases",
+            "--extra-file", str(npz), "--extra-file", str(sidecar),
+            "--fidelity-record", str(record_path), "--device", "cuda"])
+        release_s = time.perf_counter() - t0
+        rc_bad = release_artifact.main([
+            "--version", "v2", "--artifact", str(head), "--bucket", "releases",
+            "--extra-file", str(tampered),
+            "--extra-file", str(tampered.parent / sidecar.name),
+            "--fidelity-record", str(record_path), "--device", "cuda"])
+        # The CLI configures the root logger; the phases after keep theirs.
+        root.setLevel(saved_logging[0])
+        root.handlers[:] = saved_logging[1]
+        keys = sorted(store.list_keys("releases"))
+        want = [f"classifier/v1/{n}" for n in
+                ("backbone.config.json", "backbone.npz", "model.json", "model.npz")]
+        if rc != 0 or rc_bad != 1 or keys != want:
+            fail(f"weights: release exit {rc} (want 0), tampered exit {rc_bad}"
+                 f" (want 1), keys {keys}")
+        if store.get_bytes("releases", "classifier/v1/backbone.npz") != npz.read_bytes():
+            fail("weights: the released bundle is not the diffed one")
+        say(f"weights: release_artifact v1 with the bundle, its sidecar and the"
+            f" record accepted in {release_s:.2f} s (in process); v2 with one byte"
+            f" of the bundle flipped refused (exit 1, nothing written)")
+
+        got = work / "released"
+        got.mkdir()
+        for name in ("backbone.npz", "backbone.config.json"):
+            store.download("releases", f"classifier/v1/{name}", got / name)
+        variables, config = load_backbone_bundle(str(got / "backbone.npz"))
+        if (config.padding, config.bn_eps, config.feature_dim) != ("tf_same", 1e-3, 4096):
+            fail(f"weights: released config {config}")
+        rng = np.random.default_rng(SEED + 22)
+        h, w = IMAGE_HW
+        image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        pts = points(rng, WEIGHTS_POINTS)
+        csv_path = work / "points.csv"
+        write_points(csv_path, pts)
+        feats, launches, p50 = {}, {}, {}
+        for dtype in ("float32", "bfloat16"):
+            ext = KeepFeatures(build_extractor(
+                variables, dataclasses.replace(config, compute_dtype=dtype),
+                device="cuda", backbone_impl="fused"))
+            run = AnnotationRun(image, csv_path, "store://releases/classifier/v1",
+                                extractor=ext)
+            patch_crop.launches = fused_mbconv.launches = 0
+            run.run()
+            launches[dtype] = (patch_crop.launches, fused_mbconv.launches)
+            torch.cuda.synchronize()
+            check_run(run, WEIGHTS_POINTS, list(run.predictor.classes_), run.top_n)
+            feats[dtype] = ext.features.float().cpu().numpy()
+            wall = []
+            for _ in range(WEIGHTS_REQUESTS):
+                t0 = time.perf_counter()
+                run.run()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            p50[dtype] = sorted(wall)[len(wall) // 2]
+        if any(v != (1, 11) for v in launches.values()):
+            fail(f"weights: (crop, fused) launches per request {launches}, want (1, 11)")
+
+    crops = pyspacer_crops(image, pts, config.patch_size).cuda()
+    with torch.no_grad(), full_f32():
+        oracle = model.cuda().eval()(crops).float().cpu().numpy()
+    mae = float(np.mean(np.abs(feats["float32"] - oracle)))
+    cos = min_row_cosine(feats["bfloat16"], oracle)
+    spread = float(np.std(oracle, axis=0).mean())
+    if not (mae < 1e-4 and cos >= 0.999):
+        fail(f"weights: served features against the lukemelas forward: f32 MAE"
+             f" {mae} (< 1e-4), bf16 min row cosine {cos} (>= 0.999)")
+    say(f"weights: 25-point AnnotationRun over the released bundle (store://),"
+        f" launches crop / fused f32 {launches['float32']}, bf16"
+        f" {launches['bfloat16']}; features against LukemelasEfficientNetB0.forward"
+        f" on pyspacer's crops: f32 MAE {mae:.3e} (< 1e-4), bf16 min row cosine"
+        f" {cos:.6f} (>= 0.999); the oracle's features spread {spread:.3e} across"
+        f" points")
+    say(f"time weights on {smi}: phase {time.perf_counter() - phase_t0:.1f} s;"
+        f" request p50 (host clock, {WEIGHTS_REQUESTS} requests, predictor"
+        f" loaded) f32 {p50['float32']:.3f} ms, bf16 {p50['bfloat16']:.3f} ms")
+    del model, crops
+    torch.cuda.empty_cache()
+
+
+def phase_quality(smi: str):
+    """The composed quality check: the port's chain (subsample, train,
+    calibrate, export, load, score) at the CI spec on the card and on the
+    CPU, held within the JAX test's bands; then the bench's repo side at its
+    default scale on the card. sklearn is not on the card: the sklearn side
+    runs in the CPU tests only."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from mermaid_classifier_tpu_torch.scripts import quality_parity_bench
+    from mermaid_classifier_tpu_torch.train import quality_parity as qp
+
+    spec = qp.QualityRunSpec()
+    X, y = qp.make_imbalanced_clusters(spec)
+    train, ref, val = qp.split_stratified(X, y, spec)
+    sub = qp.subsample_train(train, spec)
+    out, wall = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out[device] = qp.run_repo_pipeline(sub, ref, val, spec, device=device)
+        wall[device] = time.perf_counter() - t0
+    card, cpu = out["cuda"], out["cpu"]
+    gaps = (abs(card.accuracy - cpu.accuracy),
+            abs(card.balanced_accuracy - cpu.balanced_accuracy),
+            abs(card.log_loss - cpu.log_loss))
+    uniform = float(np.log(spec.n_classes))
+    if not (gaps[0] <= QUALITY_BANDS[0] and gaps[1] <= QUALITY_BANDS[1]
+            and gaps[2] <= QUALITY_BANDS[2] and card.log_loss < 0.7 * uniform):
+        fail(f"quality: card {card} against cpu {cpu}: gaps {gaps} (bands"
+             f" {QUALITY_BANDS}), card log loss against 0.7 x uniform {0.7 * uniform}")
+    say(f"quality: CI spec ({len(sub[0])} train, {len(val[0])} val, {spec.n_classes}"
+        f" classes): card accuracy {card.accuracy:.4f}, balanced"
+        f" {card.balanced_accuracy:.4f}, log loss {card.log_loss:.4f} in"
+        f" {wall['cuda']:.2f} s; CPU {cpu.accuracy:.4f} / {cpu.balanced_accuracy:.4f}"
+        f" / {cpu.log_loss:.4f} in {wall['cpu']:.2f} s; gaps {gaps[0]:.4f} /"
+        f" {gaps[1]:.4f} / {gaps[2]:.4f} (bands {QUALITY_BANDS[0]} / {QUALITY_BANDS[1]}"
+        f" / {QUALITY_BANDS[2]}); log loss under 0.7 x uniform {0.7 * uniform:.4f}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = quality_parity_bench.main(["--repo-only", "--device", "cuda"])
+    text = buf.getvalue().strip().splitlines()
+    bench = json.loads(text[-1]) if rc == 0 and text else None
+    if bench is None or not (0.0 < bench["repo_accuracy"] <= 1.0
+                             and np.isfinite(bench["repo_log_loss"])):
+        fail(f"quality: bench repo side exit {rc}: {text[-3:]}")
+    say(f"time quality bench repo side on {smi} (default scale: 40,000 x 512,"
+        f" 30 classes, {bench['n_train']} train rows, {bench['n_val']} val):"
+        f" accuracy {bench['repo_accuracy']}, balanced"
+        f" {bench['repo_balanced_accuracy']}, log loss {bench['repo_log_loss']},"
+        f" {bench['repo_seconds']:.2f} s wall (host clock)")
+
+
 def main() -> None:
     import torch
 
@@ -3123,8 +3483,12 @@ def main() -> None:
         trunk_rates = phase_times(config, folded, results, extractor, run25, smi)
         with restored_settings("object_store_root"):
             phase_bucket(variables, config, Path(tmp), smi, trunk_rates)
+        # After the bucket phase's profile: this phase captures a CUDA graph
+        # (its head's Adam step), and profiles after one can miss kernels.
+        phase_weights(Path(tmp), smi)
         phase_train(extractor, Path(tmp), smi)
         phase_trainer(extractor, Path(tmp), smi)
+        phase_quality(smi)
         with restored_env(TAXONOMY_FIXTURE_ENV):
             recipe = phase_recipe(extractor, Path(tmp), smi)
         phase_trunk_ab(variables, config, results)

@@ -15,7 +15,6 @@ The auto batch size for head training reads available host memory from
 ``/proc/meminfo`` ``MemAvailable``, the number psutil reports as
 ``virtual_memory().available`` on Linux. Only the fields that the port
 reads are here: the JAX package's ``jax_compilation_cache_dir``,
-``use_packed_feature_cache`` (the packed cache is not ported),
 ``extractor_*`` batch and bucket sizes, ``weights_location`` and
 ``coralnet_annotations_csv_pattern`` are not, and setting them does nothing
 here.
@@ -83,6 +82,11 @@ def _read_env_file(path: str | Path = ".env") -> dict[str, str]:
     return values
 
 
+# The strings pydantic's lax mode reads as booleans (case-insensitive).
+_TRUE_WORDS = frozenset({"1", "on", "t", "true", "y", "yes"})
+_FALSE_WORDS = frozenset({"0", "off", "f", "false", "n", "no"})
+
+
 def _convert(name: str, annotation: str, value: typing.Any) -> typing.Any:
     """``value`` as the field's type (pydantic's lax conversion of a string)."""
     if not isinstance(value, str):
@@ -95,6 +99,13 @@ def _convert(name: str, annotation: str, value: typing.Any) -> typing.Any:
             return int(value.strip())
         except ValueError:
             raise ValueError(f"{name}: {value!r} is not a valid integer") from None
+    if base == "bool":
+        word = value.lower()
+        if word in _TRUE_WORDS:
+            return True
+        if word in _FALSE_WORDS:
+            return False
+        raise ValueError(f"{name}: {value!r} is not a valid boolean")
     raise TypeError(f"{name}: unsupported settings type {annotation!r}")
 
 
@@ -126,6 +137,11 @@ class Settings:
     batch_size: int | None = None
     feature_cache_dir: str | None = None
     download_max_workers: int = 50
+    # Pack train/ref/val features into flat caches once per streamed run and
+    # gather batches natively (native/fastbatch): one more on-disk copy of
+    # the features for epochs free of per-image file opens; the batches are
+    # the same bytes either way. Device-resident runs never pack.
+    use_packed_feature_cache: bool = True
     # Data-parallel head training over an N-device mesh; None = one device.
     # Not ported: the runner raises when it is set.
     train_mesh_devices: int | None = None

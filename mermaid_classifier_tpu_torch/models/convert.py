@@ -1,11 +1,28 @@
-"""Backbone weight bundles: the pickle-free npz of a flax-layout variables
-tree, with its ``EfficientNetConfig`` in a JSON sidecar.
+"""Backbone weights: a torch EfficientNet state_dict -> the flax-layout
+variables tree, and the pickle-free npz bundle of that tree with its
+``EfficientNetConfig`` in a JSON sidecar.
 
-The port's copy of the bundle I/O of ``mermaid_classifier_tpu/models/
-convert.py`` (``variables_to_flat_arrays`` through ``load_backbone_bundle``),
-on the port's ``EfficientNetConfig``. A bundle written by either package
-loads in the other to the same arrays and config. The torch state_dict
-conversion and the name remapping are not in this module.
+The port's own copy of ``mermaid_classifier_tpu/models/convert.py``, on the
+port's ``EfficientNetConfig``. ``torch_state_dict_to_variables`` takes a
+state_dict in the canonical naming (``models/remap.py`` maps torchvision and
+lukemelas checkpoints onto it):
+
+  stem.conv.weight, stem.bn.{weight,bias,running_mean,running_var}
+  stage{i}_block{j}.expand.conv.weight, ...expand.bn.*        (when expand!=1)
+  stage{i}_block{j}.depthwise.conv.weight, ...depthwise.bn.*
+  stage{i}_block{j}.se.reduce.{weight,bias}
+  stage{i}_block{j}.se.expand.{weight,bias}
+  stage{i}_block{j}.project.conv.weight, ...project.bn.*
+  head.conv.weight, head.bn.*
+  feature_projection.{weight,bias}                            (when feature_dim!=head_channels)
+
+and returns the numpy tree ``{"params", "batch_stats"}`` that the bundles
+hold and ``load_jax_variables`` and ``fold_backbone`` read: conv weights
+(out, in/groups, kh, kw) -> (kh, kw, in/groups, out), linear (out, in) ->
+(in, out), BN weight/bias -> scale/bias and running stats -> mean/var.
+Values are torch tensors (a tensor on the card is copied to the host) or
+anything numpy reads. A bundle written by either package loads in the other
+to the same arrays and config.
 """
 
 from __future__ import annotations
@@ -15,8 +32,138 @@ import os
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from mermaid_classifier_tpu_torch.models.efficientnet import EfficientNetConfig
+
+
+class WeightConversionError(ValueError):
+    """The state_dict is missing keys, or its shapes disagree with the
+    target architecture: conversion fails loudly, never skips a layer."""
+
+
+def _to_numpy(t: Any) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+class _Taker:
+    """Hands out state_dict entries by key, checking shapes, and remembers
+    which keys were taken."""
+
+    def __init__(self, sd: Mapping[str, Any]):
+        self.sd = dict(sd)
+        self.used: set[str] = set()
+
+    def take(self, key: str, expect_shape: tuple[int, ...] | None = None) -> np.ndarray:
+        if key not in self.sd:
+            raise WeightConversionError(f"state_dict is missing key {key!r}.")
+        self.used.add(key)
+        arr = _to_numpy(self.sd[key])
+        if expect_shape is not None and tuple(arr.shape) != tuple(expect_shape):
+            raise WeightConversionError(
+                f"{key!r} has shape {tuple(arr.shape)}, expected {expect_shape}."
+            )
+        return arr
+
+    def unused(self) -> list[str]:
+        return sorted(set(self.sd) - self.used)
+
+
+def _conv_kernel(taker: _Taker, key: str) -> np.ndarray:
+    w = taker.take(key)
+    if w.ndim != 4:
+        raise WeightConversionError(f"{key!r} is not a 4-D conv weight.")
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def _conv_bn(taker: _Taker, prefix: str) -> tuple[dict, dict]:
+    params = {
+        "conv": {"kernel": _conv_kernel(taker, f"{prefix}.conv.weight")},
+        "bn": {
+            "scale": taker.take(f"{prefix}.bn.weight"),
+            "bias": taker.take(f"{prefix}.bn.bias"),
+        },
+    }
+    stats = {
+        "bn": {
+            "mean": taker.take(f"{prefix}.bn.running_mean"),
+            "var": taker.take(f"{prefix}.bn.running_var"),
+        }
+    }
+    return params, stats
+
+
+def torch_state_dict_to_variables(
+    state_dict: Mapping[str, Any],
+    config: EfficientNetConfig | None = None,
+    *,
+    strict: bool = True,
+) -> dict:
+    """Convert a canonical-named state_dict into the variables tree
+    ``{"params": ..., "batch_stats": ...}`` of ``config``'s backbone. With
+    ``strict`` every key must be consumed (``num_batches_tracked`` aside)."""
+    config = config or EfficientNetConfig()
+    taker = _Taker(state_dict)
+    params: dict = {}
+    stats: dict = {}
+
+    params["stem"], stats["stem"] = _conv_bn(taker, "stem")
+
+    for stage_idx, (expand, _out_ch, repeats, _stride, _kernel) in enumerate(
+        config.stages
+    ):
+        for block_idx in range(repeats):
+            name = f"stage{stage_idx}_block{block_idx}"
+            block_p: dict = {}
+            block_s: dict = {}
+            if expand != 1:
+                block_p["expand"], block_s["expand"] = _conv_bn(taker, f"{name}.expand")
+            block_p["depthwise"], block_s["depthwise"] = _conv_bn(
+                taker, f"{name}.depthwise"
+            )
+            block_p["se"] = {
+                "reduce": {
+                    "kernel": _conv_kernel(taker, f"{name}.se.reduce.weight"),
+                    "bias": taker.take(f"{name}.se.reduce.bias"),
+                },
+                "expand": {
+                    "kernel": _conv_kernel(taker, f"{name}.se.expand.weight"),
+                    "bias": taker.take(f"{name}.se.expand.bias"),
+                },
+            }
+            block_p["project"], block_s["project"] = _conv_bn(taker, f"{name}.project")
+            params[name] = block_p
+            stats[name] = block_s
+
+    params["head"], stats["head"] = _conv_bn(taker, "head")
+
+    if config.feature_dim != config.head_channels:
+        w = taker.take("feature_projection.weight")
+        if w.shape != (config.feature_dim, config.head_channels):
+            raise WeightConversionError(
+                f"feature_projection.weight has shape {w.shape}, expected"
+                f" {(config.feature_dim, config.head_channels)}."
+            )
+        params["feature_projection"] = {
+            "kernel": np.transpose(w, (1, 0)),
+            "bias": taker.take(
+                "feature_projection.bias", (config.feature_dim,)
+            ),
+        }
+
+    if strict:
+        # num_batches_tracked is torch BN bookkeeping with no flax analog.
+        leftover = [k for k in taker.unused()
+                    if not k.endswith("num_batches_tracked")]
+        if leftover:
+            raise WeightConversionError(
+                f"state_dict has {len(leftover)} unconsumed keys, e.g."
+                f" {leftover[:5]} — name mapping is incomplete."
+            )
+
+    return {"params": params, "batch_stats": stats}
 
 
 def variables_to_flat_arrays(variables: dict) -> dict[str, np.ndarray]:

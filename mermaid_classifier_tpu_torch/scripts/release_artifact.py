@@ -34,7 +34,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--tracker-root", default=None)
     parser.add_argument(
         "--fidelity-record", default=None,
-        help="fidelity record JSON from scripts/diff_backbone.py --record;"
+        help="fidelity record JSON from python -m"
+        " mermaid_classifier_tpu_torch.scripts.diff_backbone --record;"
         " REQUIRED when --extra-file ships backbone weights (.npz)",
     )
     parser.add_argument(

@@ -98,8 +98,9 @@ def validate_fidelity_record(
     record_path: str | Path, backbone_files: list[Path]
 ) -> dict:
     """A fidelity record is the committed proof that the SHIPPED backbone
-    weights reproduce the reference extractor (the runbook:
-    docs/release_fidelity_runbook.md). Checks: the record parses, declares
+    weights reproduce the reference extractor (written by ``python -m
+    mermaid_classifier_tpu_torch.scripts.diff_backbone --record``; the
+    runbook is in README.md). Checks: the record parses, declares
     ``all_green``, carries a feature MAE within its own gate, and its
     weights hash matches every backbone npz being released: a record for
     DIFFERENT weights is not a proof of these."""
@@ -114,7 +115,8 @@ def validate_fidelity_record(
         if field not in record:
             raise ReleaseError(
                 f"fidelity record {record_path} is missing {field!r};"
-                " regenerate it with scripts/diff_backbone.py --record."
+                " regenerate it with python -m"
+                " mermaid_classifier_tpu_torch.scripts.diff_backbone --record."
             )
     if not record["all_green"]:
         raise ReleaseError(
@@ -165,9 +167,9 @@ def release_artifact(
 
     When the release ships backbone weights (an ``.npz`` among
     ``extra_files``), a ``fidelity_record`` is REQUIRED: the JSON written by
-    the fidelity runbook (``scripts/diff_backbone.py --record``, see
-    docs/release_fidelity_runbook.md) proving those exact weights reproduce
-    the reference extractor. ``allow_unverified_backbone=True`` downgrades
+    ``python -m mermaid_classifier_tpu_torch.scripts.diff_backbone
+    --save-npz <npz> --record <json>`` (the fidelity runbook, README.md),
+    proving those exact weights reproduce the reference extractor. ``allow_unverified_backbone=True`` downgrades
     the refusal to a loud warning, for emergencies only.
     """
     validate_version(version)
@@ -198,15 +200,17 @@ def release_artifact(
                 "RELEASING UNVERIFIED BACKBONE WEIGHTS %s: no fidelity"
                 " record was provided. The <1e-4 feature-MAE contract is"
                 " UNPROVEN for this release — run the fidelity runbook"
-                " (docs/release_fidelity_runbook.md) as soon as possible.",
+                " (mermaid_classifier_tpu_torch.scripts.diff_backbone"
+                " --record) as soon as possible.",
                 [f.name for f in backbone_files],
             )
         else:
             raise ReleaseError(
                 f"release ships backbone weights"
                 f" {[f.name for f in backbone_files]} but no fidelity"
-                " record. Run the runbook (docs/release_fidelity_runbook.md:"
-                " diff_backbone --padding auto --record fidelity.json, then"
+                " record. Run the runbook (python -m"
+                " mermaid_classifier_tpu_torch.scripts.diff_backbone"
+                " --padding auto --save-npz <npz> --record fidelity.json, then"
                 " the live extractor gate) and pass fidelity_record=, or"
                 " explicitly set allow_unverified_backbone=True."
             )

@@ -14,16 +14,21 @@ The port of ``mermaid_classifier_tpu/train/runner.py``:
   when ``settings.tracking_sync_bucket`` is set, mirror the run and the
   registry into that bucket of the default store (best-effort, as in JAX).
 
+A run that is not device-resident packs its features into a packed
+feature cache in a temporary directory when
+``settings.use_packed_feature_cache`` is on (the default), and removes the
+directory when the run ends; a device-resident run reads the disk once and
+never packs.
+
 Not ported, raising where it is asked for: the data-parallel mesh
-(``settings.train_mesh_devices``). The packed feature cache is not passed
-to the trainer; the run logs the param ``packed_feature_cache`` as "not
-ported".
+(``settings.train_mesh_devices``).
 """
 
 from __future__ import annotations
 
 import os
 import platform
+import shutil
 import tempfile
 import typing
 from contextlib import contextmanager
@@ -133,6 +138,9 @@ class TrainingRunner:
         finally:
             if cleanup_dataset and self.dataset is not None:
                 self.dataset.cleanup()
+            packed = getattr(self, "_packed_cache_dir", None)
+            if packed is not None and os.path.isdir(packed):
+                shutil.rmtree(packed, ignore_errors=True)
 
     def _make_trainer(self, batch_size: int, class_weight) -> MermaidTrainer:
         """Hook so tests can shrink the head architecture."""
@@ -142,11 +150,19 @@ class TrainingRunner:
                 " head training over a device mesh is not ported"
             )
         opts = self.training_options
+        packed_dir = None
+        # The packed cache speeds up epochs streamed from disk. A
+        # device-resident run reads the disk once, for the upload, so
+        # packing would only write the whole corpus again.
+        if settings.use_packed_feature_cache and not opts.device_resident:
+            self._packed_cache_dir = tempfile.mkdtemp(prefix="packed_cache_")
+            packed_dir = self._packed_cache_dir
         return MermaidTrainer(
             batch_size=batch_size,
             on_epoch_end=self._on_epoch_end,
             class_weight=class_weight,
             early_stopping_patience=opts.early_stopping_patience,
+            packed_cache_dir=packed_dir,
             checkpoint_dir=opts.checkpoint_dir,
             device_resident=opts.device_resident,
             resident_dtype=opts.resident_dtype,
@@ -322,7 +338,6 @@ class TrackingTrainingRunner(TrainingRunner):
                 run.log_params(self.dataset_options.weighting.to_log_dict())
             else:
                 run.log_params({"weighting/enabled": False})
-            run.log_param("packed_feature_cache", "not ported")
             self._log_system_specs(run)
 
             with SystemMetricsSampler(run, interval=10.0):

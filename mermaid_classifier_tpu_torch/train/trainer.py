@@ -23,8 +23,14 @@ calibration and final evaluation read the resident ref and val rows. The
 image order, batch boundaries and label order are those of the streamed
 path (``ImageLabels.iter_index_batches``).
 
-Left out: ``mesh``, ``packed_cache_dir`` (raises ``NotImplementedError``),
-the TPU host's threaded page pre-touch and the ahead-of-time program warming.
+With ``packed_cache_dir`` each split's features are packed once, at the
+start of a call, into a packed feature cache under that directory
+(``ImageLabels.build_packed_cache``, ``native/fastbatch.py``), and every
+batch after that is a row gather from it instead of a feature-file read;
+the batches are the same bytes.
+
+Left out: ``mesh``, the TPU host's threaded page pre-touch and the
+ahead-of-time program warming.
 ``accuracy_score`` and ``log_loss`` are numpy functions with sklearn 1.9's
 semantics.
 """
@@ -234,11 +240,6 @@ class MermaidTrainer:
                 f"early_stopping_patience must be >= 1 or None, got"
                 f" {early_stopping_patience!r}"
             )
-        if packed_cache_dir is not None:
-            raise NotImplementedError(
-                "packed_cache_dir: the packed feature cache is not ported"
-                " (it needs the native row gather)"
-            )
         if resident_dtype not in MLPClassifier.RESIDENT_DTYPES:
             raise ValueError(
                 f"resident dtype must be one of {MLPClassifier.RESIDENT_DTYPES},"
@@ -253,6 +254,9 @@ class MermaidTrainer:
         self.on_epoch_end = on_epoch_end
         self.class_weight = class_weight
         self.early_stopping_patience = early_stopping_patience
+        # When set, train/ref/val features are packed once into flat caches
+        # under this directory and every batch is a native row gather
+        # (native/fastbatch) instead of a per-image file read.
         self.packed_cache_dir = packed_cache_dir
         # When set, the trainer state (classifier, Adam, early-stopping
         # bookkeeping, best snapshot) is checkpointed after every epoch and
@@ -279,6 +283,8 @@ class MermaidTrainer:
         self._early_stop_info: dict[str, Any] | None = None
         # Stage budget of a resident __call__ (seconds and sizes).
         self.resident_timings: dict[str, float] | None = None
+        # Host seconds the last __call__ spent packing its caches, or None.
+        self.packing_seconds: float | None = None
 
     # -- checkpoint / resume -------------------------------------------------
 
@@ -517,6 +523,19 @@ class MermaidTrainer:
             labels.val.label_count,
             labels.label_count,
         )
+
+        self.packing_seconds = None
+        if self.packed_cache_dir is not None:
+            t_pack = time.perf_counter()
+            with _log_entry_and_exit("packing feature caches"):
+                for split_name in ("train", "ref", "val"):
+                    split = getattr(labels, split_name)
+                    if len(split):
+                        split.build_packed_cache(
+                            os.path.join(self.packed_cache_dir, split_name)
+                        )
+            self.packing_seconds = time.perf_counter() - t_pack
+
         classes_list = sorted(labels.ref.classes_set)
 
         with _log_entry_and_exit("training MLP"):

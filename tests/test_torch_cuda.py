@@ -1052,3 +1052,97 @@ def test_store_release_request_launches_on_cuda(cuda, tmp_path, monkeypatch):
     (p0, c0, f0), (p1, c1, f1) = runs
     assert (c0, f0) == (c1, f1) == (1, 11)
     assert np.abs(p0 - p1).max() <= 2e-6
+
+
+@pytest.mark.parametrize("ckpt", ["self_test", "lukemelas"])
+def test_diff_backbone_on_cuda(cuda, tmp_path, ckpt):
+    """The port's diff_backbone with both sides on the card (f32, TF32
+    off): all green on the canonical self-test and on a pyspacer-lineage
+    checkpoint, every layer under 5e-4 and the features' MAE under 1e-4."""
+    import json
+
+    from mermaid_classifier_tpu_torch.scripts import diff_backbone
+    from tests.parity.foreign_checkpoints import (
+        build_lukemelas_b0,
+        save_pyspacer_efficientnet_pt,
+    )
+
+    args = ["--device", "cuda", "--probe-batch", "4",
+            "--record", str(tmp_path / "r.json")]
+    if ckpt == "self_test":
+        args.append("--self-test")
+    else:
+        save_pyspacer_efficientnet_pt(build_lukemelas_b0(seed=2),
+                                      tmp_path / "efficientnet.pt")
+        args += [str(tmp_path / "efficientnet.pt"), "--save-npz",
+                 str(tmp_path / "b.npz")]
+    assert diff_backbone.main(args) == 0
+    record = json.loads((tmp_path / "r.json").read_text())
+    assert record["all_green"] and record["n_layers_compared"] == 212
+    assert record["worst_layer_max_abs"] <= 5e-4 and record["feature_mae"] < 1e-4
+    assert record["padding"] == ("tf_same" if ckpt == "lukemelas" else "symmetric")
+
+
+def _packed_task(tmp_path):
+    from mermaid_classifier_tpu_torch.data.features_io import write_feature_file
+    from mermaid_classifier_tpu_torch.data.labels import ImageLabels, preprocess_labels
+
+    X, y = _train_data(3000, 256, 8, seed=11)
+    labels = ImageLabels()
+    rowcols = np.stack([np.arange(20) * 3, np.arange(20) * 7], 1).astype(np.int32)
+    for i in range(150):
+        path = tmp_path / f"img_{i:03d}.features.npz"
+        if not path.exists():
+            write_feature_file(str(path), rowcols, X[i * 20:(i + 1) * 20])
+        labels.add_image(str(path), [(int(r), int(c), str(lab)) for (r, c), lab in
+                                     zip(rowcols[::-1], y[i * 20:(i + 1) * 20][::-1])])
+    return preprocess_labels(labels, split_ratios=(0.15, 0.15))
+
+
+def test_packed_streamed_equals_unpacked_on_cuda(cuda, tmp_path):
+    """A streamed MermaidTrainer run on the card with ``packed_cache_dir``
+    and without it: the native gather is in use, and the loss curve and
+    every weight are the same bit for bit."""
+    from mermaid_classifier_tpu_torch.native.fastbatch import native_available
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+    from mermaid_classifier_tpu_torch.train.trainer import MermaidTrainer
+
+    assert native_available()
+
+    class Small(MermaidTrainer):
+        def _make_classifier(self, class_weight):
+            return MLPClassifier((64,), learning_rate_init=1e-3, random_state=0,
+                                 class_weight=class_weight, device=cuda)
+
+    out = []
+    for packed in (False, True):
+        task = _packed_task(tmp_path)
+        trainer = Small(batch_size=500, device=cuda,
+                        packed_cache_dir=str(tmp_path / "cache") if packed else None)
+        out.append(trainer(task, nbr_epochs=3, pc_models=[]))
+        assert (task.train.packed_cache is not None) == packed
+        if packed:
+            assert task.train.packed_cache.use_native
+    (ca, va, ma), (cb, vb, mb) = out
+    assert ca.estimator.loss_curve_ == cb.estimator.loss_curve_
+    assert _same_weights(ca.estimator, cb.estimator)
+    assert ma.ref_accs == mb.ref_accs and va.scores == vb.scores
+
+
+def test_quality_repo_pipeline_on_cuda_within_bands_of_cpu(cuda):
+    """The composed chain (train, calibrate, export, load, score) at the CI
+    spec on the card and on the CPU: the card's numbers within the JAX
+    test's bands of the CPU's (accuracy 0.02, balanced accuracy 0.04, log
+    loss 0.10) and its log loss under 0.7 x uniform."""
+    from mermaid_classifier_tpu_torch.train import quality_parity as qp
+
+    spec = qp.QualityRunSpec()
+    X, y = qp.make_imbalanced_clusters(spec)
+    train, ref, val = qp.split_stratified(X, y, spec)
+    sub = qp.subsample_train(train, spec)
+    card = qp.run_repo_pipeline(sub, ref, val, spec, device="cuda")
+    cpu = qp.run_repo_pipeline(sub, ref, val, spec, device="cpu")
+    assert abs(card.accuracy - cpu.accuracy) <= 0.02
+    assert abs(card.balanced_accuracy - cpu.balanced_accuracy) <= 0.04
+    assert abs(card.log_loss - cpu.log_loss) <= 0.10
+    assert card.log_loss < 0.7 * float(np.log(spec.n_classes))

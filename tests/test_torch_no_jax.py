@@ -45,8 +45,38 @@ def test_port_imports_no_jax_pandas_or_pil():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 83
+    assert int(n_modules) >= 91
     assert bad.strip() == "[]", bad
+
+
+NEW_MODULES = (
+    "mermaid_classifier_tpu_torch.models.remap",
+    "mermaid_classifier_tpu_torch.models.canonical_mirror",
+    "mermaid_classifier_tpu_torch.scripts.diff_backbone",
+    "mermaid_classifier_tpu_torch.scripts.extract_reference_features",
+    "mermaid_classifier_tpu_torch.native",
+    "mermaid_classifier_tpu_torch.native.fastbatch",
+    "mermaid_classifier_tpu_torch.train.quality_parity",
+    "mermaid_classifier_tpu_torch.scripts.quality_parity_bench",
+)
+
+
+def test_landing_strip_cache_and_quality_modules_in_the_walk():
+    """The weight landing strip, the packed cache and the quality check are
+    walked (and so import-checked) above, and importing the native module
+    builds nothing."""
+    code = (
+        "import pkgutil, mermaid_classifier_tpu_torch as pkg\n"
+        "from mermaid_classifier_tpu_torch.native import fastbatch\n"
+        "names = {m.name for m in pkgutil.walk_packages(pkg.__path__,"
+        " pkg.__name__ + '.')}\n"
+        f"print(sorted(set({NEW_MODULES!r}) - names), fastbatch._lib)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] None"
 
 
 def test_chip_smoke_fails_without_cuda():

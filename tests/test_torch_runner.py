@@ -4,12 +4,11 @@ Both runners take the same seeded ETL environment
 (``tests/torch_recipe_env``, taxonomy through the fixture-file route), a
 head shrunk to (16,) from the shared sklearn init (the ``_make_trainer``
 hook), effective-number weighting and a stratified subsample, resident and
-streamed. The JAX side runs with ``use_packed_feature_cache=False``: its
-trainer yields the same batches either way, and the port has no packed
-cache. Held, each as stated:
+streamed. Both run with the default ``use_packed_feature_cache=True``, so
+each streamed run packs its splits first. Held, each as stated:
 
-- the logged params equal (the ``system/*`` facts and the port's
-  ``packed_feature_cache`` aside), ``artifact_eval_inputs`` included;
+- the logged params equal (the ``system/*`` facts aside),
+  ``artifact_eval_inputs`` included;
 - the dataset, split, weighting and audit tables equal byte for byte;
 - per-epoch val and training losses within rel 1e-4, ref accuracies equal
   (``tests/test_torch_trainer.py``'s bounds);
@@ -22,10 +21,12 @@ cache. Held, each as stated:
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
 
+from mermaid_classifier_tpu.config import settings as jset
 from mermaid_classifier_tpu.config.options import DatasetOptions as JDOpts
 from mermaid_classifier_tpu.config.options import TrackingOptions as JKOpts
 from mermaid_classifier_tpu.config.options import TrainingOptions as JTOpts
@@ -93,8 +94,7 @@ def env(tmp_path, monkeypatch):
     clear_taxonomy_caches()
     jstore, tstore, manifest_path, mermaid_path = build_both(
         tmp_path, n_sources=2, images_per_source=5, points_per_image=15)
-    with both_settings(tmp_path, mermaid_path, batch_size=200,
-                       jax={"use_packed_feature_cache": False}):
+    with both_settings(tmp_path, mermaid_path, batch_size=200):
         yield jstore, tstore, manifest_path, tmp_path
     clear_taxonomy_caches()
 
@@ -160,11 +160,11 @@ def test_runner_matches_jax(env, resident):
 
     def params(run):
         return {k: v for k, v in run.params().items()
-                if not k.startswith("system/") and k != "packed_feature_cache"}
+                if not k.startswith("system/")}
 
     assert params(trun) == params(jrun)
     assert ("artifact_eval_inputs" in params(trun)) == resident
-    assert trun.params()["packed_feature_cache"] == "not ported"
+    assert "packed_feature_cache" not in trun.params()
     assert trun.params()["system/torch_device"] == "cpu"
     for path in SAME_BYTES:
         assert trun.artifact(path).read_bytes() == jrun.artifact(path).read_bytes(), path
@@ -226,6 +226,64 @@ def test_runner_matches_jax(env, resident):
                 if not m.startswith(("system/", "resident/"))}
 
     assert evaluated(trun) == evaluated(jrun)
+
+
+@pytest.mark.parametrize("use_cache", [True, False])
+@pytest.mark.parametrize("resident", [False, True])
+def test_packs_only_streamed_runs_and_removes_the_cache(env, monkeypatch,
+                                                        resident, use_cache):
+    """A streamed run with the setting on packs every split under one
+    temporary directory, trains from the packed rows and removes the
+    directory when it ends; a resident run, or the setting off, packs
+    nothing. The JAX runner makes the same choice."""
+    seen = []
+
+    class SpyTrainer(TSmallTrainer):
+        def __call__(self, labels, *args, **kwargs):
+            out = super().__call__(labels, *args, **kwargs)
+            seen.append((self.packed_cache_dir,
+                         self.packed_cache_dir is not None
+                         and sorted(os.listdir(self.packed_cache_dir)),
+                         [getattr(labels, s).packed_cache is not None
+                          for s in ("train", "ref", "val")]))
+            return out
+
+    class SpyRunner(TRunner):
+        def _make_trainer(self, batch_size, class_weight):
+            trainer = super()._make_trainer(batch_size, class_weight)
+            trainer.__class__ = SpyTrainer
+            return trainer
+
+    _, tstore, manifest_path, tmp_path = env
+    jpacked = []
+    jmake = JRunner._make_trainer
+
+    def jax_make_trainer(self, *args):
+        trainer = jmake(self, *args)
+        jpacked.append(trainer.packed_cache_dir)
+        return trainer
+
+    monkeypatch.setattr(JRunner, "_make_trainer", jax_make_trainer)
+    with override_settings(use_packed_feature_cache=use_cache), \
+            jset.override_settings(use_packed_feature_cache=use_cache):
+        runner = SpyRunner(
+            **_options(resident, manifest_path, TSub, TW, TDOpts, TTOpts, TKOpts),
+            tracker=TTracker(tmp_path / "t"), store=tstore, device="cpu",
+            enforce_torch_pin=False)
+        runner.run(run_name="run")
+        JSmallRunner(**_options(resident, manifest_path, JSub, JW, JDOpts, JTOpts,
+                                JKOpts),
+                     tracker=JTracker(tmp_path / "j"), store=env[0]).run(
+            run_name="run")
+    (packed_dir, listing, attached), = seen
+    packs = use_cache and not resident
+    assert (packed_dir is not None) == packs == (jpacked[0] is not None)
+    assert attached == [packs] * 3
+    if packs:
+        assert listing == ["ref", "train", "val"]
+        assert not os.path.exists(packed_dir) and not os.path.exists(jpacked[0])
+        assert _only_run(TTracker(tmp_path / "t")).latest_metrics()["accuracy"] == \
+            _only_run(JTracker(tmp_path / "j")).latest_metrics()["accuracy"]
 
 
 def test_registry_versions_and_models_spec(env):

@@ -22,7 +22,6 @@ from mermaid_classifier_tpu_torch.utils import system_metrics as tsys
 # nothing in the port.
 JAX_ONLY = {
     "jax_compilation_cache_dir",
-    "use_packed_feature_cache",
     "extractor_backbone_batch",
     "extractor_point_bucket",
     "extractor_image_bucket",
@@ -50,7 +49,11 @@ ENV_CASES = {
     "quoted_and_optional": ({"TRACKING_DIR": "/runs"},
                             "TAXONOMY_FIXTURE_DIR='/tax dir'\n"
                             'OBJECT_STORE_ROOT="/store"\nTRAIN_MESH_DEVICES=4\n'),
-    "jax_only_names": ({"USE_PACKED_FEATURE_CACHE": "0"},
+    "packed_cache_off": ({"USE_PACKED_FEATURE_CACHE": "0"}, ""),
+    "packed_cache_words": ({"USE_PACKED_FEATURE_CACHE": "Off"},
+                           "USE_PACKED_FEATURE_CACHE=yes\n"),
+    "packed_cache_file": ({}, "USE_PACKED_FEATURE_CACHE=TRUE\n"),
+    "jax_only_names": ({},
                        "NOT_A_FIELD=1\nEXTRACTOR_BACKBONE_BATCH=64\n"
                        "WEIGHTS_LOCATION=/w.npz\n"),
 }
@@ -71,7 +74,8 @@ def test_from_env_matches_jax(tmp_path, monkeypatch, case):
 
 
 @pytest.mark.parametrize("text", ["BATCH_SIZE=not_a_number\n",
-                                  "DOWNLOAD_MAX_WORKERS=1.5\n"])
+                                  "DOWNLOAD_MAX_WORKERS=1.5\n",
+                                  "USE_PACKED_FEATURE_CACHE=maybe\n"])
 def test_invalid_values_refused_by_both(tmp_path, text):
     env_file = tmp_path / ".env"
     env_file.write_text(text)

@@ -159,9 +159,19 @@ class TestEndToEnd:
         with pytest.raises(ValueError, match=match):
             MermaidTrainer(batch_size=10, device="cpu", **kw)
 
-    def test_packed_cache_is_not_ported(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="packed"):
-            MermaidTrainer(batch_size=10, device="cpu", packed_cache_dir=str(tmp_path))
+    def test_packed_cache_is_not_ported(self, task_labels, tmp_path):
+        """``packed_cache_dir`` no longer raises: a call packs each split
+        into its own cache under the directory (``features.bin`` and
+        ``index.json``, the JAX layout) before the first epoch, attaches it
+        and reports the seconds it took."""
+        trainer = SmallNetTrainer(batch_size=64, packed_cache_dir=str(tmp_path))
+        trainer(task_labels, nbr_epochs=1, pc_models=[])
+        for split in ("train", "ref", "val"):
+            assert sorted(p.name for p in (tmp_path / split).iterdir()) == \
+                ["features.bin", "index.json"]
+            cache = getattr(task_labels, split).packed_cache
+            assert cache.rows == getattr(task_labels, split).label_count
+        assert trainer.packing_seconds > 0
 
     def test_default_device_is_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
