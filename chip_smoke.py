@@ -5,9 +5,11 @@ its bulk extraction lane, its head-training lane, its trainer (with the
 packed feature cache), the composed quality check, its training recipe
 (ETL -> resident train -> gated export -> nine metric groups -> registry ->
 ``models:/`` serve, programmatically and through the ``classifier_train``
-YAML CLI), its full-trunk A/B harness and the operator's lifecycle around a
+YAML CLI), its full-trunk A/B harness, the operator's lifecycle around a
 training run (CoralNet manifest, generated config, S3 store, tracking sync,
-report, release, ``store://`` serve) on one CUDA card and check them.
+report, release, ``store://`` serve) and its job layer (two extraction
+workers sharing the card, a relaunch, the one-command E2E drive) on one
+CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin), ``g++``
@@ -150,21 +152,10 @@ Phases, one output line each:
    crop and 11 fused launches, within 2e-6 of the registered predictor on
    ``extract_features``. Times: the run's ``profiled_sections``,
    ``metrics_group_seconds``, ``resident_timings`` and the phase's wall.
-   Then the same recipe as a user runs it: a YAML directory
-   (``training_config.yaml`` whose ``env:`` block names the store, buckets,
-   annotation table, taxonomy, feature cache and tracking dir, and
-   ``rollups.csv`` beside it) through ``python -m
-   mermaid_classifier_tpu_torch.scripts.classifier_train --config-dir`` in
-   a subprocess, read back from the tracking dir: exit 0, all nine groups
-   in ``metrics_group_seconds`` with the scalars the JAX groups emit and no
-   group failure in the CLI's log, every figure the groups draw for these
-   inputs (read off the run's tables) either written or named in
-   ``figures_not_written`` (the card machine has no matplotlib), parity <=
-   1e-6, accuracy within 0.005 of the programmatic run's, the registered
-   model served by ``models:/`` with one crop and 11 fused launches within
-   2e-6 of its predictor; and ``train_job_entrypoint`` on a config with an
-   unknown key prints ``==== FAIL load_config`` and exits 1. Times: the
-   CLI run's wall, ``profiled_sections`` and ``metrics_group_seconds``.
+   Then ``train_job_entrypoint`` on a config with an unknown key prints
+   ``==== FAIL load_config`` and exits 1. The ``classifier_train`` CLI
+   runs in the lifecycle phase, held to the checks a CLI run must pass,
+   and once more in the jobs phase's E2E drive.
 12. trunk_ab — the full-trunk A/B harness (``experiments.trunk_ab``) at B0
    224, 128-patch chunks, on every schedule of ``AB_SCHEDULES``: in bf16 and
    f32 each schedule's ``gate_cosine`` against ``folded`` is >= 0.999;
@@ -186,12 +177,16 @@ Phases, one output line each:
    the two excluded by name (80 bare labels, the two folded by rollups);
    ``classifier_train`` on the generated directory (the operator's edits:
    the manifest, resident bf16, the model name) with ``TRACKING_SYNC_BUCKET``
-   set: exit 0, parity <= 1e-6, a 4096 -> 80 head, no sync warning, and the
-   bucket holding the run directory and the registry entry key for key and
-   byte for byte; ``generate_report`` on the run, ``sync_tracking pull``
+   set: exit 0, parity <= 1e-6, a 4096 -> 80 head, no sync warning, all
+   nine groups in ``metrics_group_seconds`` with the scalars the JAX groups
+   emit and no group failure in the CLI's log, every figure the groups draw
+   for these inputs (read off the run's tables) either written or named in
+   ``figures_not_written`` (the card machine has no matplotlib),
+   ``registry_meta.json`` naming the run, and the bucket holding the run
+   directory and the registry entry key for key and byte for byte; ``generate_report`` on the run, ``sync_tracking pull``
    into a second root and ``generate_report`` again: equal HTML;
    ``release_artifact`` v1 (exit 0, the registered bytes under
-   ``classifier/v1/``), v1 again (exit 1, bucket unchanged), v12 (exit 0);
+   ``classifier/v1/``), v1 again (exit 1, bucket unchanged);
    ``annotate_image`` (in this process, so the launch counts can be read)
    from ``store://releases/classifier/v1`` and from ``models:/``: 1 crop and
    11 fused launches each, the same labels, scores within 2e-6; and the
@@ -224,9 +219,32 @@ Phases, one output line each:
    its default scale (40,000 x 512, 30 classes) on the card, printing its
    accuracy, balanced accuracy, log loss and wall seconds. sklearn is not
    on the card, so the sklearn side runs in the CPU tests only.
+16. jobs — the job layer (last): ``launch_processing`` in a subprocess with
+   a run YAML of two workers of the port's ``build_feature_bucket`` (run as
+   a file, bf16, ``fused``, the bucket phase's weights) over the bucket
+   phase's sources 1 and 2, sharing the card: exit 1, the worker whose
+   shard holds the truncated object FAILED, its log and the error log name
+   the image, every other image's file equal to the bucket phase's
+   single-process file bit for bit at the same dtype, and each worker's
+   logged kernel launches one crop per image it extracted and 11 fused per
+   128-patch chunk plus 11 for its numerics gate (the workers are other
+   processes, so this process's counters cannot see them); the same run
+   launched again: exit 1, every worker skipped every done image, no
+   file's bytes or ``mtime_ns`` changed, no new progress record, launches
+   (0, 11); then the port's ``e2e_smoke --production-backbone`` with the
+   bucket phase's weights (the seeded B0 gives every patch nearly the same
+   feature, and a head trained on those fails the export gate) over 8
+   images of 64 points per source (a head trained on the default 128
+   points learns nothing, and its calibration puts its float32 copy past
+   the export gate) in a subprocess: exit 0 and ``PASS``. Times: the fan-out's and the
+   relaunch's wall from submit to all terminal, each worker's images/s and
+   patch-features/s from the progress log (first image to last, and from
+   submit), their sum beside the bucket phase's single-process rate, and
+   the E2E's ``stage budget:``.
 
-Then the card's name and power limit (nvidia-smi), one JSON line of kernel
-results, and as the last line ``{"ok": true, "device": {...}}``.
+After each phase, its seconds (``phase <name>: <s> s``). Then the card's
+name and power limit (nvidia-smi), one JSON line of kernel results, and as
+the last line ``{"ok": true, "device": {...}}``.
 
 A kernel's bound (``bound_ms``) is the least time the card could take for
 its work at the shapes of this run: the largest of the bytes it must move
@@ -1529,19 +1547,10 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
     del runner, predictor
     torch.cuda.empty_cache()
 
-    cli_s = recipe_cli(extractor, base, smi, metrics["accuracy"], {
-        "coralnet_manifest_uri": manifest_path, "rollups": rollup_csv,
-        "total_annotations": int((n_rows - n_unmapped) * RECIPE_SUBSAMPLE_SHARE),
-        "OBJECT_STORE_ROOT": base / "store", "CORALNET_TRAIN_DATA_BUCKET": bucket,
-        "MERMAID_TRAIN_DATA_BUCKET": bucket,
-        "MERMAID_ANNOTATIONS_PARQUET_PATTERN": mermaid_path,
-        taxonomy.TAXONOMY_FIXTURE_ENV: base / "taxonomy",
-        "FEATURE_CACHE_DIR": base / "feature_cache_cli",
-        "TRACKING_DIR": tracker.root})
+    job_s = recipe_entrypoint(base)
     wall = time.perf_counter() - t0
     say(f"time recipe on {smi}: phase wall {wall:.1f} s (store and tables"
-        f" {write_s:.1f} s, runner {run_s:.1f} s, CLI run and entrypoint"
-        f" {cli_s:.1f} s)")
+        f" {write_s:.1f} s, runner {run_s:.1f} s, entrypoint {job_s:.1f} s)")
     return {"classes": classes, "rollups": rollups, "mapping": mapping,
             "mermaid": mermaid, "manifest": manifest, "store": base / "store",
             "bucket": bucket, "sections": sections}
@@ -1580,9 +1589,6 @@ RECIPE_GROUP_SCALARS = {
     "ranking": ("top_1_accuracy", "top_3_accuracy", "top_5_accuracy",
                 "top_10_accuracy", "mrr", "hierarchical_top_5_mean_similarity"),
 }
-RECIPE_CLI_MODEL = "mermaid-recipe-80-cli"
-
-
 def expected_figures(run) -> list[str]:
     """The figures the nine groups draw for this run's inputs, read off the
     run's tables (RECIPE_FIGURES)."""
@@ -1603,164 +1609,85 @@ def expected_figures(run) -> list[str]:
     return out
 
 
-def recipe_cli(extractor, base: Path, smi: str, programmatic_acc: float, cfg: dict):
-    """The recipe as a user runs it: ``classifier_train --config-dir`` on a
-    YAML directory (``training_config.yaml`` with an ``env:`` block, and
-    ``rollups.csv`` beside it) in a subprocess, at the programmatic run's
-    width, data and subsample; the run read back from the tracking dir and
-    its registered model served by ``models:/``. Then
-    ``train_job_entrypoint`` on a config with an unknown key. Returns the
-    seconds taken."""
-    import numpy as np
-    import torch
-
-    from mermaid_classifier_tpu_torch.inference import load_predictor
+def check_cli_run(run, tracker, model: str, where: str, cli_log: str) -> dict:
+    """What a ``classifier_train`` run must leave in its tracking dir: no
+    group failure in the CLI's log, all nine groups in
+    ``metrics_group_seconds`` with the scalars the JAX groups emit, the
+    confusion tables, every figure the groups draw for these inputs
+    written or named in ``figures_not_written`` (the card machine has no
+    matplotlib), parity <= 1e-6, and ``registry_meta.json`` naming the run.
+    Returns the run's metrics and params and the registered version."""
     from mermaid_classifier_tpu_torch.metrics import REPORT_ORDER
-    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
-    from mermaid_classifier_tpu_torch.serve.annotation import AnnotationRun
-    from mermaid_classifier_tpu_torch.tracking import LocalTracker
 
-    t0 = time.perf_counter()
-    config_dir = base / "cli_config"
-    config_dir.mkdir()
-    (config_dir / "rollups.csv").write_text(Path(cfg.pop("rollups")).read_text())
-    manifest = cfg.pop("coralnet_manifest_uri")
-    total = cfg.pop("total_annotations")
-    (config_dir / "training_config.yaml").write_text(
-        "dataset:\n"
-        f"  coralnet_manifest_uri: '{manifest}'\n"
-        "  label_rollup_spec_csv: rollups.csv\n"
-        f"  subsample: {{strategy: stratified, total_annotations: {total}}}\n"
-        "  weighting: {enabled: true, weight_ratio_cap: 10.0}\n"
-        "training:\n"
-        f"  epochs: {RECIPE_EPOCHS}\n"
-        f"  early_stopping_patience: {RECIPE_PATIENCE}\n"
-        "  device_resident: true\n"
-        "  resident_dtype: bfloat16\n"
-        "  calibration_backend: device\n"
-        "tracking:\n"
-        "  experiment_name: recipe-cli\n"
-        f"  model_name: {RECIPE_CLI_MODEL}\n"
-        "env:\n" + "".join(f"  {k}: '{v}'\n" for k, v in cfg.items()))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(Path(__file__).resolve().parent), env.get("PYTHONPATH")) if p)
-    argv = [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.classifier_train",
-            "--config-dir", str(config_dir), "--run-name", "cli"]
-    t1 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=base, env=env, capture_output=True, text=True,
-                          timeout=600)
-    cli_s = time.perf_counter() - t1
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
-        fail(f"recipe cli: classifier_train exited {proc.returncode}")
-    if "Metric group" in proc.stdout + proc.stderr:
-        print(proc.stderr[-8000:], file=sys.stderr)
-        fail("recipe cli: a metric group failed (its warning is in the CLI's log)")
-
-    tracker = LocalTracker(cfg["TRACKING_DIR"])
-    run = tracker.runs("recipe-cli")[-1]
+    if "Metric group" in cli_log:
+        print(cli_log[-8000:], file=sys.stderr)
+        fail(f"{where}: a metric group failed (its warning is in the CLI's log)")
     metrics, params = run.latest_metrics(), run.params()
     seconds = json.loads(run.artifact("metrics_group_seconds.json").read_text())
     if list(seconds) != list(REPORT_ORDER):
-        fail(f"recipe cli: metrics_group_seconds names {list(seconds)}, want all"
+        fail(f"{where}: metrics_group_seconds names {list(seconds)}, want all"
              f" nine groups {list(REPORT_ORDER)}")
     missing = {g: [m for m in names if m not in metrics]
                for g, names in RECIPE_GROUP_SCALARS.items()}
     missing = {g: m for g, m in missing.items() if m}
     if missing:
-        fail(f"recipe cli: groups logged no {missing}")
+        fail(f"{where}: groups logged no {missing}")
     for table in ("confusion_matrix/frequencies.csv", "confusion_matrix/percents.csv"):
         if not run.artifact(table).is_file():
-            fail(f"recipe cli: confusion_matrices wrote no {table}")
+            fail(f"{where}: confusion_matrices wrote no {table}")
     want_figs = expected_figures(run)
     pngs = [p for p in run.list_artifacts() if p.endswith(".png")]
     named = params.get("figures_not_written")
     if named is not None:
         if named.split(", ") != want_figs or pngs:
-            fail(f"recipe cli: figures_not_written {named!r} (PNGs {pngs}), want"
+            fail(f"{where}: figures_not_written {named!r} (PNGs {pngs}), want"
                  f" exactly {want_figs}")
     elif sorted(pngs) != sorted(want_figs):
-        fail(f"recipe cli: PNGs {pngs}, want {want_figs}")
-    registered = tracker.latest_model_version(RECIPE_CLI_MODEL)
+        fail(f"{where}: PNGs {pngs}, want {want_figs}")
+    registered = tracker.latest_model_version(model)
     meta = json.loads((registered / "registry_meta.json").read_text())
     if meta["run_id"] != run.run_id:
-        fail(f"recipe cli: registry_meta.json {meta} does not name run {run.run_id}")
-    if not abs(metrics["accuracy"] - programmatic_acc) <= RECIPE_ACC_MARGIN:
-        fail(f"recipe cli: accuracy {metrics['accuracy']}, the programmatic run's"
-             f" {programmatic_acc} (want within {RECIPE_ACC_MARGIN})")
+        fail(f"{where}: registry_meta.json {meta} does not name run {run.run_id}")
     parity = metrics.get("export_parity_max_abs_diff")
     if parity is None or not parity <= 1e-6:
-        fail(f"recipe cli: export parity {parity} (want <= 1e-6)")
+        fail(f"{where}: export parity {parity} (want <= 1e-6)")
+    say(f"{where}: nine groups timed; ece {metrics['ece']:.4f}, top_5_accuracy"
+        f" {metrics['top_5_accuracy']:.4f}, mrr {metrics['mrr']:.4f},"
+        f" cross_branch_error_rate {metrics['cross_branch_error_rate']:.4f},"
+        f" cover_mean_rmse_pct {metrics['cover_mean_rmse_pct']:.4f},"
+        f" per_source/n_sources {metrics['per_source/n_sources']:.0f}")
+    if named is not None:
+        say(f"{where}: figures_not_written ({len(want_figs)}, matplotlib does not"
+            f" import here): {named}")
+    else:
+        say(f"{where}: {len(pngs)} figures written: {', '.join(sorted(pngs))}")
+    say(f"{where}: metrics_group_seconds: {json.dumps(seconds)}")
+    return {"metrics": metrics, "params": params, "registered": registered}
 
-    predictor = load_predictor(registered, device="cuda")
-    rng = np.random.default_rng(SEED + 23)
-    h, w = IMAGE_HW
-    image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
-    pts = points(rng, 25)
-    csv_path = base / "serve_cli.csv"
-    write_points(csv_path, pts)
-    spec = f"models:/{RECIPE_CLI_MODEL}"
-    ann = AnnotationRun(image, csv_path, spec, extractor=extractor,
-                        tracker_root=tracker.root)
-    patch_crop.launches = 0
-    fused_mbconv.launches = 0
-    ann.run()
-    launches = (patch_crop.launches, fused_mbconv.launches)
-    torch.cuda.synchronize()
-    if launches != (1, 11):
-        fail(f"recipe cli: {spec} launched (crop, fused) {launches}, want (1, 11)")
-    check_run(ann, 25, list(predictor.classes_), ann.top_n)
-    feats = extractor.extract_features(image, np.asarray(pts, np.int32))
-    diff = float(np.abs(ann.proba - predictor.predict_proba(feats)).max())
-    if not diff <= 2e-6:
-        fail(f"recipe cli: {spec} scores {diff:.3e} from the registered predictor"
-             " on extract_features (want <= 2e-6)")
 
+def recipe_entrypoint(base: Path) -> float:
+    """``train_job_entrypoint`` on a config with an unknown key prints
+    ``==== FAIL load_config`` and exits 1. Returns the seconds taken."""
     bad = base / "bad_config"
     bad.mkdir()
     (bad / "training_config.yaml").write_text(
         "training: {epochs: 2}\nnot_a_real_block: {}\n")
-    t2 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parent), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
     job = subprocess.run(
         [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.train_job_entrypoint",
          "--config-dir", str(bad)], cwd=base, env=env, capture_output=True, text=True,
         timeout=300)
-    job_s = time.perf_counter() - t2
+    job_s = time.perf_counter() - t0
     if job.returncode != 1 or "==== FAIL load_config" not in job.stdout:
         print(job.stdout[-4000:], job.stderr[-4000:], file=sys.stderr)
-        fail(f"recipe cli: train_job_entrypoint on an unknown key exited"
+        fail(f"recipe: train_job_entrypoint on an unknown key exited"
              f" {job.returncode} (want 1 with '==== FAIL load_config')")
-
-    import csv
-
-    with run.artifact("profiled_sections.csv").open() as fh:
-        sections = [f"{r['name']} {r['seconds']}" for r in csv.DictReader(fh)]
-    say(f"recipe cli: classifier_train --config-dir exit 0 in {cli_s:.1f} s;"
-        f" accuracy {metrics['accuracy']} (programmatic {programmatic_acc}, within"
-        f" {RECIPE_ACC_MARGIN}); export parity {parity:.3e}; nine groups timed;"
-        f" ece {metrics['ece']:.4f}, top_5_accuracy {metrics['top_5_accuracy']:.4f},"
-        f" mrr {metrics['mrr']:.4f}, cross_branch_error_rate"
-        f" {metrics['cross_branch_error_rate']:.4f}, cover_mean_rmse_pct"
-        f" {metrics['cover_mean_rmse_pct']:.4f}, per_source/n_sources"
-        f" {metrics['per_source/n_sources']:.0f}; registered"
-        f" {registered.parent.name}/{registered.name}")
-    if named is not None:
-        say(f"recipe cli: figures_not_written ({len(want_figs)}, matplotlib does not"
-            f" import here): {named}")
-    else:
-        say(f"recipe cli: {len(pngs)} figures written: {', '.join(sorted(pngs))}")
-    say(f"recipe cli: {spec} served 25 points, launches crop={launches[0]}"
-        f" fused={launches[1]}, max |dp| vs the registered predictor {diff:.3e}"
-        f" (<= 2e-6)")
-    say(f"recipe cli: train_job_entrypoint on a config with an unknown key:"
+    say(f"recipe: train_job_entrypoint on a config with an unknown key:"
         f" '==== FAIL load_config', exit 1, in {job_s:.1f} s")
-    say(f"time recipe cli on {smi}: wall {cli_s:.1f} s; profiled_sections (s):"
-        f" {', '.join(sections)}")
-    say(f"time recipe cli on {smi}: metrics_group_seconds: {json.dumps(seconds)}")
-    del predictor
-    torch.cuda.empty_cache()
-    return time.perf_counter() - t0
+    return job_s
 
 
 BUCKET_IMAGES, BUCKET_POINTS = 24, (25, 200)  # per source; points per image
@@ -2320,6 +2247,8 @@ def phase_bucket(variables, config, tmp: Path, smi: str, trunk_rates: dict):
     say(f"bucket: phase took {time.perf_counter() - phase_t0:.1f} s")
     del extractor, trainer, cal
     torch.cuda.empty_cache()
+    return {"root": root, "weights": weights, "truth": truth,
+            "rate": rates["bfloat16"]}
 
 
 def phase_trunk_ab(variables, config, results):
@@ -2847,7 +2776,7 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
     counts -> ``generate_training_config`` -> ``classifier_train`` with the
     store on S3 and ``TRACKING_SYNC_BUCKET`` set -> ``generate_report`` ->
     ``sync_tracking pull`` on a second root and the report again ->
-    ``release_artifact`` v1, v1 again, v12 -> ``annotate_image`` from
+    ``release_artifact`` v1, v1 again -> ``annotate_image`` from
     ``store://releases/classifier/v1`` (in this process, so the kernels'
     launch counts can be read)."""
     import csv
@@ -3000,11 +2929,9 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
         tracker = LocalTracker(tracking_a)
         experiment = next(p.name for p in tracking_a.iterdir() if p.name != "_models")
         run = tracker.runs(experiment)[-1]
-        metrics, params = run.latest_metrics(), run.params()
-        parity = metrics.get("export_parity_max_abs_diff")
-        if parity is None or not parity <= 1e-6:
-            fail(f"lifecycle: export parity {parity} (want <= 1e-6)")
-        registered = tracker.latest_model_version(LIFECYCLE_MODEL)
+        checked = check_cli_run(run, tracker, LIFECYCLE_MODEL, "lifecycle", train_log)
+        metrics, params = checked["metrics"], checked["params"]
+        parity, registered = metrics["export_parity_max_abs_diff"], checked["registered"]
         model_json = json.loads((registered / "model.json").read_text())
         if model_json["input_dim"] != 4096 or len(model_json["classes"]) != 80:
             fail(f"lifecycle: the registered head is {model_json['input_dim']} ->"
@@ -3066,11 +2993,6 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
             "release_artifact", "--version", "v1", *release, expect=1)
         if remote("releases") != v1:
             fail("lifecycle: the refused v1 release changed the bucket")
-        _, walls["release_artifact v12"] = cli("release_artifact", "--version", "v12",
-                                               *release)
-        if sorted(remote("releases")) != sorted(
-                [*v1, "classifier/v12/model.json", "classifier/v12/model.npz"]):
-            fail(f"lifecycle: v12 beside v1 gives {sorted(remote('releases'))}")
 
         # 6. Serve from store:// through the annotate_image CLI, in this
         # process, against the same artifact from models:/.
@@ -3158,7 +3080,7 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
         f" the run and the registry entry key for key ({sync_objects} objects)")
     say(f"lifecycle: report of the pulled run equals the local report"
         f" ({len(html[0]):,} bytes); release v1 exit 0, v1 again exit 1 with the"
-        f" bucket unchanged, v12 exit 0")
+        f" bucket unchanged")
     say(f"lifecycle: annotate_image from store://releases/classifier/v1 launches"
         f" crop={launches_s[0]} fused={launches_s[1]}, predictions equal models:/"
         f" (score gap {cli_diff:.1e}); store:// request vs models:/ max |dp| {diff:.3e}"
@@ -3452,6 +3374,225 @@ def phase_quality(smi: str):
         f" {bench['repo_seconds']:.2f} s wall (host clock)")
 
 
+JOBS_WORKERS = 2
+JOBS_RUN_ID = "jobs"
+_LAUNCHES_RE = r"kernel launches in this process: crop (\d+), fused_mbconv (\d+)"
+
+
+def worker_rates(records, t_submit: float) -> dict:
+    """A worker's rates from its progress records: steady (from its first
+    image written to its last, over the images after the first) and from
+    the launcher's submit (process start, imports, weights, gate included)."""
+    times = sorted(r["time"] for r in records)
+    points = [r["points"] for r in sorted(records, key=lambda r: r["time"])]
+    span = times[-1] - times[0]
+    return {"images": len(records), "points": sum(points),
+            "steady_images_s": (len(times) - 1) / span if span > 0 else float("nan"),
+            "steady_pf_s": sum(points[1:]) / span if span > 0 else float("nan"),
+            "from_submit_images_s": len(times) / (times[-1] - t_submit),
+            "from_submit_pf_s": sum(points) / (times[-1] - t_submit)}
+
+
+def phase_jobs(bucket: dict, tmp: Path, smi: str):
+    """The job layer on the card: ``launch_processing`` (a subprocess) fans
+    the bucket phase's corpus out over JOBS_WORKERS workers of the port's
+    bucket CLI (bf16, fused, the bucket's weights) sharing the card; every
+    file equals the bucket phase's single-process file bit for bit, the
+    worker whose shard holds the truncated object FAILED and named it, and
+    each worker's log gives its kernel launches; the run relaunched rewrites
+    nothing; then the port's ``e2e_smoke --production-backbone``, whose
+    workers' logs give theirs."""
+    import csv
+    import re
+
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+    from mermaid_classifier_tpu_torch.jobs import chunk_items
+
+    t0 = time.perf_counter()
+    base = tmp / "jobs"
+    base.mkdir()
+    store = LocalFSObjectStore(bucket["root"])
+    truth = bucket["truth"]
+    sources = sorted({s for s, _ in truth})
+    (base / "sources.csv").write_text("source_id\n" + "".join(f"{s}\n" for s in sources))
+    progress, errors = base / "progress.jsonl", base / "errors.csv"
+    entry = REPO / "mermaid_classifier_tpu_torch" / "scripts" / "build_feature_bucket.py"
+    args = ["--source-bucket", "src", "--target-bucket", "jobs", "--backbone-weights",
+            str(bucket["weights"]), "--compute-dtype", "bfloat16", "--progress-log",
+            str(progress), "--error-log", str(errors), "--device", "cuda"]
+    (base / "run.yaml").write_text(
+        f"job:\n  entrypoint: '{entry}'\n"
+        f"  env: {{OBJECT_STORE_ROOT: '{bucket['root']}'}}\n"
+        f"processing:\n  container_args: {json.dumps(args)}\n"
+        f"  shard: {{items_csv: sources.csv, workers: {JOBS_WORKERS}}}\n")
+    shards = chunk_items(sources, JOBS_WORKERS)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+
+    def worker_launches(logs: dict) -> dict:
+        launches = {}
+        for i, text in logs.items():
+            found = re.findall(_LAUNCHES_RE, text)
+            if len(found) != 1:
+                print(text[-4000:], file=sys.stderr)
+                fail(f"jobs: worker {i} logged no kernel launch counts")
+            launches[i] = tuple(map(int, found[0]))
+        return launches
+
+    def launch(log_dir: Path):
+        argv = [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.launch_processing",
+                "--run-config", str(base / "run.yaml"), "--run-id", JOBS_RUN_ID,
+                "--log-dir", str(log_dir)]
+        t_submit = time.time()
+        t1 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=base, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t1
+        logs = {i: (log_dir / f"{JOBS_RUN_ID}-w{i}-{i}.log").read_text()
+                for i in range(len(shards))}
+        return proc, wall, t_submit, logs, worker_launches(logs)
+
+    # 1. The fan-out: the worker holding the truncated object fails, the
+    # launcher exits 1, every other image lands bit for bit.
+    corrupt_source = "1"  # image BUCKET_CORRUPT of write_bucket_sources
+    bad_worker = next(i for i, shard in enumerate(shards) if corrupt_source in shard)
+    proc, wall, t_submit, logs, launches = launch(base / "logs")
+    want_failed = f"1/{len(shards)} jobs failed: ['{JOBS_RUN_ID}-w{bad_worker}-{bad_worker}']"
+    if proc.returncode != 1 or want_failed not in proc.stderr:
+        print(proc.stderr[-6000:], file=sys.stderr)
+        fail(f"jobs: launch_processing exited {proc.returncode} (want 1, {want_failed!r})")
+    if f"source {corrupt_source} image {BUCKET_CORRUPT} failed" not in logs[bad_worker]:
+        print(logs[bad_worker][-4000:], file=sys.stderr)
+        fail(f"jobs: worker {bad_worker}'s log does not name image {BUCKET_CORRUPT}")
+    with open(errors, newline="") as fh:
+        error_rows = [(r["source_id"], r["image_id"]) for r in csv.DictReader(fh)]
+    if error_rows != [(corrupt_source, BUCKET_CORRUPT)]:
+        fail(f"jobs: error log {error_rows}, want [({corrupt_source!r}, {BUCKET_CORRUPT!r})]")
+    keys = sorted(k for k in store.list_keys("jobs") if k.endswith(".features.npz"))
+    want_keys = sorted(k for k in store.list_keys("bf16") if k.endswith(".features.npz"))
+    if keys != want_keys or len(keys) != len(truth):
+        fail(f"jobs: {len(keys)} feature files, the bucket phase's {len(want_keys)}")
+    for source, image_id in truth:
+        (rc_a, f_a), (rc_b, f_b) = (bucket_features(store, b, source, image_id)
+                                    for b in ("jobs", "bf16"))
+        if f_a.dtype != f_b.dtype or rc_a.tobytes() != rc_b.tobytes() \
+                or f_a.tobytes() != f_b.tobytes():
+            fail(f"jobs: {source}/{image_id} differs from the bucket phase's file")
+    # Each worker's launches: one crop per image it extracted, 11 fused per
+    # 128-patch chunk plus 11 for its numerics gate.
+    for i, shard in enumerate(shards):
+        mine = [rc for (s, _), (_, rc, _) in truth.items() if s in shard]
+        want = (len(mine), 11 * sum(-(-len(rc) // 128) for rc in mine) + 11)
+        if launches[i] != want:
+            fail(f"jobs: worker {i} launched (crop, fused) {launches[i]}, want {want}")
+    records = [json.loads(line) for line in progress.read_text().splitlines()]
+    rates = {i: worker_rates([r for r in records if r["source_id"] in shard], t_submit)
+             for i, shard in enumerate(shards)}
+    say(f"jobs: launch_processing with {len(shards)} workers (shards {shards}) exit 1:"
+        f" worker {bad_worker} FAILED and its log and the error log name image"
+        f" {BUCKET_CORRUPT}; {len(keys)} feature files equal the bucket phase's"
+        f" single-process files bit for bit (bf16); launches (crop, fused) per worker"
+        f" {[launches[i] for i in range(len(shards))]}")
+
+    # 2. Relaunch the run: every done image skipped, nothing rewritten.
+    paths = [store._path("jobs", k) for k in keys]
+    before = [(p.stat().st_mtime_ns, p.read_bytes()) for p in paths]
+    proc2, wall2, _, logs2, launches2 = launch(base / "logs_relaunch")
+    after = [(p.stat().st_mtime_ns, p.read_bytes()) for p in paths]
+    n_records = len(progress.read_text().splitlines())
+    if proc2.returncode != 1 or after != before or n_records != len(records):
+        fail(f"jobs: relaunch exit {proc2.returncode} (want 1), files rewritten"
+             f" {sum(a != b for a, b in zip(after, before))}, progress records"
+             f" {n_records} (want {len(records)})")
+    for i, shard in enumerate(shards):
+        skipped = sum(s in shard for s, _ in truth)
+        if f"0 images extracted (0 points), {skipped} skipped" not in logs2[i] \
+                or launches2[i] != (0, 11):
+            print(logs2[i][-4000:], file=sys.stderr)
+            fail(f"jobs: relaunched worker {i} did not skip its {skipped} images"
+                 f" (launches {launches2[i]}, want (0, 11): the gate only)")
+    say(f"jobs: relaunch exit 1, every worker skipped every done image ({len(keys)}"
+        f" files' bytes and mtime_ns unchanged, no new progress record), launches"
+        f" (crop, fused) per worker {[launches2[i] for i in range(len(shards))]}"
+        f" (the gate only)")
+
+    # 3. The port's one-command drive at B0 224 / 4096 on the card, as the
+    # README gives it: with --production-backbone it defaults to 8 images x
+    # 64 points per source (at 4 x 16 the 4096-d head learns nothing and the
+    # export gate rightly refuses it; ROADMAP C).
+    t1 = time.perf_counter()
+    e2e = subprocess.run(
+        [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.e2e_smoke",
+         "--production-backbone", "--backbone-weights", str(bucket["weights"]),
+         "--workdir", str(base / "e2e"), "--device", "cuda"],
+        cwd=base, env=env, capture_output=True, text=True, timeout=900)
+    e2e_s = time.perf_counter() - t1
+    budget = [line for line in e2e.stdout.splitlines() if "stage budget:" in line]
+    if e2e.returncode != 0 or "[e2e] PASS in " not in e2e.stdout or len(budget) != 1:
+        print(e2e.stdout[-6000:], e2e.stderr[-6000:], file=sys.stderr)
+        fail(f"jobs: e2e_smoke --production-backbone exited {e2e.returncode}")
+    # The drive's workers ran the kernels too: one crop per image each
+    # extracted, at least 11 fused launches per image, every image once.
+    e2e_logs = {f.name: f.read_text()
+                for f in sorted((base / "e2e" / "logs").glob("e2e-smoke-w*.log"))}
+    if not e2e_logs:
+        fail("jobs: the E2E drive left no worker logs")
+    e2e_launches = worker_launches(e2e_logs)
+    extracted = {}
+    for name, text in e2e_logs.items():
+        # The builder and its CLI each log the run's summary.
+        found = set(re.findall(r"(\d+) images extracted \(\d+ points\)", text))
+        if len(found) != 1:
+            fail(f"jobs: E2E worker log {name} gives no one extracted-image count")
+        extracted[name] = int(found.pop())
+        crop, fused = e2e_launches[name]
+        if extracted[name] == 0 or crop != extracted[name] or fused < 11 * crop:
+            print(text[-4000:], file=sys.stderr)
+            fail(f"jobs: E2E worker {name} extracted {extracted[name]} images and"
+                 f" launched (crop, fused) {(crop, fused)}: want one crop per image"
+                 f" and at least 11 fused per image")
+    want_images = int(re.search(r"synthesized (\d+) images", e2e.stdout).group(1))
+    if sum(extracted.values()) != want_images:
+        fail(f"jobs: E2E workers extracted {sum(extracted.values())} images of"
+             f" {want_images}")
+    say(f"jobs: e2e_smoke --production-backbone --device cuda: PASS in {e2e_s:.1f} s;"
+        f" workers' launches (crop, fused) {list(e2e_launches.values())} over"
+        f" {list(extracted.values())} images")
+
+    single_wall, single_ims, single_pfs, _ = bucket["rate"]
+    say(f"time jobs on {smi}: fan-out of {len(truth) + 1} images over {len(shards)}"
+        f" workers, launch_processing subprocess {wall:.2f} s from submit to all"
+        f" terminal (polls every 2 s); relaunch {wall2:.2f} s")
+    for i in range(len(shards)):
+        r = rates[i]
+        say(f"time jobs on {smi}: worker {i} ({r['images']} images, {r['points']}"
+            f" points): steady {r['steady_images_s']:.2f} images/s,"
+            f" {r['steady_pf_s']:.1f} patch-features/s (first image to last);"
+            f" from submit {r['from_submit_images_s']:.2f} images/s,"
+            f" {r['from_submit_pf_s']:.1f} patch-features/s")
+    # The workers' windows need not overlap, so their rates' sum is not a
+    # rate they reached together: the combined rate counts every image
+    # after the first written by any worker over the union window, from
+    # that first image to the last written by any.
+    ordered = sorted(records, key=lambda r: r["time"])
+    union = ordered[-1]["time"] - ordered[0]["time"]
+    firsts = [min(r["time"] for r in records if r["source_id"] in shard) for shard in shards]
+    lasts = [max(r["time"] for r in records if r["source_id"] in shard) for shard in shards]
+    say(f"time jobs on {smi}: combined {len(ordered) - 1} images,"
+        f" {sum(r['points'] for r in ordered[1:])} points over the union window"
+        f" {union:.3f} s: {(len(ordered) - 1) / union:.2f} images/s,"
+        f" {sum(r['points'] for r in ordered[1:]) / union:.1f} patch-features/s;"
+        f" the workers' windows overlap {min(lasts) - max(firsts):.3f} s")
+    say(f"time jobs on {smi}: sum of the workers' steady rates"
+        f" {sum(r['steady_images_s'] for r in rates.values()):.2f} images/s,"
+        f" {sum(r['steady_pf_s'] for r in rates.values()):.1f} patch-features/s,"
+        f" beside the bucket phase's single-process bf16 builder run"
+        f" {single_ims:.2f} images/s, {single_pfs:.1f} patch-features/s"
+        f" ({single_wall:.3f} s)")
+    say(f"time jobs on {smi}: e2e {budget[0].split('] ', 1)[-1]}; phase"
+        f" {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -3467,34 +3608,48 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     config = EfficientNetConfig()
     results = {}
-    phase_build()
-    phase_crop(config, results)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        say(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    timed("crop", phase_crop, config, results)
     variables = perturbed_b0_variables(config)
     folded = fm.to_device(fm.fold_backbone(variables, config), "cuda")
-    phase_fused(config, folded, results)
-    phase_depthwise(config, results)
-    phase_trunk(variables, config)
+    timed("fused", phase_fused, config, folded, results)
+    timed("depthwise", phase_depthwise, config, results)
+    timed("trunk", phase_trunk, variables, config)
     with tempfile.TemporaryDirectory() as tmp:
-        extractor, run25 = phase_serve(variables, config, results, Path(tmp))
+        extractor, run25 = timed("serve", phase_serve, variables, config, results,
+                                 Path(tmp))
         # The kernels' profiler readings (times, bucket) come before any
         # CUDA graph is profiled: after the training phases traced graph
         # replays, later profiles in the process read device times below
         # the kernels' bounds (PERF.md, the training lane).
-        trunk_rates = phase_times(config, folded, results, extractor, run25, smi)
+        trunk_rates = timed("times", phase_times, config, folded, results, extractor,
+                            run25, smi)
         with restored_settings("object_store_root"):
-            phase_bucket(variables, config, Path(tmp), smi, trunk_rates)
+            bucket = timed("bucket", phase_bucket, variables, config, Path(tmp), smi,
+                           trunk_rates)
         # After the bucket phase's profile: this phase captures a CUDA graph
         # (its head's Adam step), and profiles after one can miss kernels.
-        phase_weights(Path(tmp), smi)
-        phase_train(extractor, Path(tmp), smi)
-        phase_trainer(extractor, Path(tmp), smi)
-        phase_quality(smi)
+        timed("weights", phase_weights, Path(tmp), smi)
+        timed("train", phase_train, extractor, Path(tmp), smi)
+        timed("trainer", phase_trainer, extractor, Path(tmp), smi)
+        timed("quality", phase_quality, smi)
         with restored_env(TAXONOMY_FIXTURE_ENV):
-            recipe = phase_recipe(extractor, Path(tmp), smi)
-        phase_trunk_ab(variables, config, results)
+            recipe = timed("recipe", phase_recipe, extractor, Path(tmp), smi)
+        timed("trunk_ab", phase_trunk_ab, variables, config, results)
         with restored_env(TAXONOMY_FIXTURE_ENV, *PROXY_VARS, *S3_VARS), \
                 restored_settings("object_store_root", "tracking_dir"):
-            phase_lifecycle(variables, config, extractor, recipe, Path(tmp), smi)
+            timed("lifecycle", phase_lifecycle, variables, config, extractor, recipe,
+                  Path(tmp), smi)
+        timed("jobs", phase_jobs, bucket, Path(tmp), smi)
+    say(f"phases: {time.perf_counter() - t_start:.1f} s in all")
 
     sources = {
         "patch_crop": ("mermaid_classifier_tpu_torch/csrc/patch_crop.cu",

@@ -11,7 +11,9 @@ Usage:
 
 The store is the local-filesystem root named by ``OBJECT_STORE_ROOT``.
 ``--device`` defaults to ``cuda`` (it raises without a card; ``--device
-cpu`` runs the kernels' plain versions). A trunk in any dtype but float32
+cpu`` runs the kernels' plain versions). The script also runs as a file
+(``python mermaid_classifier_tpu_torch/scripts/build_feature_bucket.py``),
+which is how a job launcher starts its workers. A trunk in any dtype but float32
 always runs the device-numerics gate first. Exit code 1 when any image
 failed or no requested source is available.
 """
@@ -24,6 +26,13 @@ import dataclasses
 import json
 import logging
 import re
+import sys
+from pathlib import Path
+
+if not __package__:
+    # Run as a file (a job's entrypoint, ``python <path> ...``): the
+    # repository root onto the path, as ``-m`` from the root would have it.
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 logger = logging.getLogger("build_feature_bucket")
 
@@ -236,6 +245,12 @@ def main(argv: list[str] | None = None) -> int:
         )
     result = builder.run(available, verify_numerics=verify)
     logger.info(result.describe())
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+
+    # What this process launched on the card (0 on the CPU, where the
+    # wrappers run their plain versions): a launcher reads it per worker.
+    logger.info("kernel launches in this process: crop %d, fused_mbconv %d",
+                patch_crop.launches, fused_mbconv.launches)
     return result.exit_code
 
 

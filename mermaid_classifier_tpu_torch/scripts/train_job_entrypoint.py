@@ -11,6 +11,10 @@ Usage:
     python -m mermaid_classifier_tpu_torch.scripts.train_job_entrypoint \\
         --config-dir path/to/config [--config-name training_config.yaml] \\
         [--run-name NAME] [--device cuda] [--allow-unpinned-torch]
+
+It also runs as a file (``python
+mermaid_classifier_tpu_torch/scripts/train_job_entrypoint.py``), which is
+how a job launcher starts it.
 """
 
 from __future__ import annotations
@@ -21,6 +25,11 @@ import os
 import sys
 import traceback
 from pathlib import Path
+
+if not __package__:
+    # Run as a file (a job's entrypoint, ``python <path> ...``): the
+    # repository root onto the path, as ``-m`` from the root would have it.
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 logger = logging.getLogger("train_job_entrypoint")
 

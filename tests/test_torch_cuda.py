@@ -1146,3 +1146,114 @@ def test_quality_repo_pipeline_on_cuda_within_bands_of_cpu(cuda):
     assert abs(card.balanced_accuracy - cpu.balanced_accuracy) <= 0.04
     assert abs(card.log_loss - cpu.log_loss) <= 0.10
     assert card.log_loss < 0.7 * float(np.log(spec.n_classes))
+
+
+# --- the job layer on the card -------------------------------------------------
+
+# The second stage's second block is stride 1 with an expansion: fusable.
+JOBS_TINY = {
+    "stem_channels": 8, "stages": [[1, 8, 1, 1, 3], [6, 16, 2, 2, 3]],
+    "head_channels": 16, "se_ratio": 0.25, "feature_dim": 16, "patch_size": 32,
+}
+
+
+def _port_env(repo):
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(repo), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def test_fanout_workers_on_cuda_equal_an_in_process_run(cuda, tmp_path):
+    """Two ``LocalProcessBackend`` workers share the card, each running the
+    port's bucket CLI as a file (tiny backbone, ``fused``, default
+    ``--device cuda``); every feature file equals the in-process CLI run's
+    bit for bit, and that run launched the crop and fused kernels."""
+    import io
+    import json
+    from pathlib import Path
+
+    from mermaid_classifier_tpu_torch.config import settings as tset
+    from mermaid_classifier_tpu_torch.data.feature_bucket import annotations_key
+    from mermaid_classifier_tpu_torch.data.features_io import read_feature_file
+    from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
+    from mermaid_classifier_tpu_torch.jobs import (
+        JobStatus,
+        LocalProcessBackend,
+        launch_processing,
+        parse_run_config,
+        wait_for_completion,
+    )
+    from mermaid_classifier_tpu_torch.scripts import build_feature_bucket
+
+    repo = Path(__file__).resolve().parents[1]
+    root = tmp_path / "store"
+    store = LocalFSObjectStore(root)
+    rng = np.random.default_rng(9)
+    for source in ("1", "2", "3"):
+        lines = ["image_id,image_key,row,col"]
+        for image_id, n in (("a", 5), ("b", 40)):
+            image = rng.integers(0, 256, (90, 120, 3), dtype=np.uint8)
+            key = f"s{source}/{image_id}.npy"
+            store.put_bytes("src", key, _npy_bytes(image))
+            pts = np.stack([rng.integers(0, 90, n), rng.integers(0, 120, n)], 1)
+            lines += [f"{image_id},{key},{r},{c}" for r, c in pts]
+        store.put_bytes("src", annotations_key(source), "\n".join(lines).encode())
+    (tmp_path / "tiny.json").write_text(json.dumps(JOBS_TINY))
+    (tmp_path / "sources.csv").write_text("source_id\n1\n2\n3\n")
+    entry = repo / "mermaid_classifier_tpu_torch" / "scripts" / "build_feature_bucket.py"
+    common = ["--source-bucket", "src", "--backbone-config-json",
+              str(tmp_path / "tiny.json")]
+    (tmp_path / "run.yaml").write_text(
+        f"job:\n  entrypoint: {entry}\n  env: {{OBJECT_STORE_ROOT: '{root}'}}\n"
+        f"processing:\n  container_args: {json.dumps([*common, '--target-bucket', 'fan'])}\n"
+        "  shard: {items_csv: sources.csv, workers: 2}\n")
+    backend = LocalProcessBackend(log_dir=tmp_path / "logs")
+    job_ids = launch_processing(parse_run_config(tmp_path / "run.yaml"), backend, "card")
+    try:
+        statuses = wait_for_completion(backend, job_ids, poll_seconds=0.2,
+                                       timeout_seconds=600)
+    finally:
+        backend.terminate_all()
+    assert set(statuses.values()) == {JobStatus.COMPLETED}, [
+        (tmp_path / "logs" / f"{j}.log").read_text()[-2000:] for j in job_ids]
+
+    saved = tset.settings.object_store_root
+    tset.settings.object_store_root = str(root)
+    try:
+        before = (patch_crop.launches, fm.launches)
+        assert build_feature_bucket.main(
+            [*common, "--target-bucket", "one", "--source-ids", "1,2,3"]) == 0
+        torch.cuda.synchronize()
+        # Six images of one chunk each: one crop and one fused block apiece.
+        assert (patch_crop.launches - before[0], fm.launches - before[1]) == (6, 6)
+    finally:
+        tset.settings.object_store_root = saved
+    keys = sorted(k for k in store.list_keys("one") if k.endswith(".features.npz"))
+    assert len(keys) == 6
+    assert sorted(k for k in store.list_keys("fan") if k.endswith(".features.npz")) == keys
+    for key in keys:
+        (rc_a, f_a), (rc_b, f_b) = (read_feature_file(io.BytesIO(
+            store.get_bytes(bucket, key))) for bucket in ("fan", "one"))
+        assert f_a.dtype == f_b.dtype == np.float32
+        assert rc_a.tobytes() == rc_b.tobytes() and f_a.tobytes() == f_b.tobytes()
+
+
+def test_e2e_tiny_on_cuda(cuda, tmp_path):
+    """The port's one-command drive on the card at its tiny backbone: two
+    workers share the card, and classifier_train, the reload and
+    predict_features run with ``--device cuda`` and the torch pin."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.e2e_smoke",
+         "--workdir", str(tmp_path), "--images-per-source", "2", "--device", "cuda"],
+        cwd=repo, env=_port_env(repo), capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert "[e2e] PASS in " in proc.stdout and "stage budget:" in proc.stdout
+    assert (tmp_path / "tracking" / "_models" / "mermaid-mlp-example" / "v1"
+            / "model.npz").is_file()

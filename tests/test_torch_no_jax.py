@@ -45,7 +45,7 @@ def test_port_imports_no_jax_pandas_or_pil():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 91
+    assert int(n_modules) >= 99
     assert bad.strip() == "[]", bad
 
 
@@ -77,6 +77,38 @@ def test_landing_strip_cache_and_quality_modules_in_the_walk():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[] None"
+
+
+JOB_MODULES = (
+    "mermaid_classifier_tpu_torch.jobs",
+    "mermaid_classifier_tpu_torch.jobs.backend",
+    "mermaid_classifier_tpu_torch.jobs.launcher_config",
+    "mermaid_classifier_tpu_torch.jobs.launch",
+    "mermaid_classifier_tpu_torch.jobs.kubernetes",
+    "mermaid_classifier_tpu_torch.scripts.launch_processing",
+    "mermaid_classifier_tpu_torch.scripts.launch_training",
+    "mermaid_classifier_tpu_torch.scripts.e2e_smoke",
+)
+
+
+def test_job_layer_modules_in_the_walk_and_free_of_torch():
+    """The job layer and its CLIs are walked (and so import-checked)
+    above, and importing them loads no torch or numpy: a launcher starts
+    in well under a second, its workers import the model stack."""
+    code = (
+        "import importlib, pkgutil, sys, mermaid_classifier_tpu_torch as pkg\n"
+        f"for name in {JOB_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy'))\n"
+        "names = {m.name for m in pkgutil.walk_packages(pkg.__path__,"
+        " pkg.__name__ + '.')}\n"
+        f"print(sorted(set({JOB_MODULES!r}) - names), heavy)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] []"
 
 
 def test_chip_smoke_fails_without_cuda():
