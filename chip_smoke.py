@@ -241,6 +241,28 @@ Phases, one output line each:
    patch-features/s from the progress log (first image to last, and from
    submit), their sum beside the bucket phase's single-process rate, and
    the E2E's ``stage budget:``.
+17. parallel — the parallel layer (last), in this process at world size 1
+   over NCCL on ``cuda:0`` (``make_mesh(device="cuda")``; NCCL refuses two
+   ranks on one card): the mesh extractor (B0 224, 4096-d, ``folded``,
+   batch 128, f32 and bf16, 256 points on a 1536x2048 image: one crop
+   launch per image) against the single-process ``folded`` extractor, bit
+   for bit or within 1e-4 MAE; ``load_sharded_predictor`` over the serve
+   phase's 4096 -> (500, 300, 100) -> 80 artifact against ``load_predictor``
+   within 1e-6 (1,001 rows); ``ShardedHeadTrainer`` at (1, 1) against one
+   ``MLPClassifier`` step at the same width from the same numpy weights
+   (loss rel 1e-5, each weight matrix 1e-5 relative Frobenius norm);
+   resident training on the mesh (40,000 rows, f32 and int8, captured
+   steps with the all-reduce in the graph) against the single-device run at
+   the JAX tests' tolerances (losses abs 1e-6, weights rtol 1e-5 / atol
+   1e-6), the largest differences printed; ``production_geometry_report``
+   at ``C2_GEOMETRY`` (on ``meta``), its ``buffer_gb_per_device`` against
+   the allocated bytes of a real 449,099 x 4096 int8 buffer on the mesh;
+   the port's ``dryrun_multihost`` with 2 x 2 gloo CPU ranks in a
+   subprocess: exit 0 and its marker. Times: ms per Adam step of the mesh
+   and single-device captured resident steps (CUDA events around one
+   10,000-row call, 50 steps), of the single-device step at batch 100 and
+   50 (what one rank of a 2- and a 4-rank mesh would run were batches
+   regrouped by owner), and each leg's wall.
 
 After each phase, its seconds (``phase <name>: <s> s``). Then the card's
 name and power limit (nvidia-smi), one JSON line of kernel results, and as
@@ -3593,6 +3615,208 @@ def phase_jobs(bucket: dict, tmp: Path, smi: str):
         f" {time.perf_counter() - t0:.1f} s")
 
 
+def phase_parallel(variables, config, results, tmp: Path, smi: str):
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mermaid_classifier_tpu_torch.inference import load_predictor
+    from mermaid_classifier_tpu_torch.models.extractor import build_extractor
+    from mermaid_classifier_tpu_torch.ops import patch_crop
+    from mermaid_classifier_tpu_torch.parallel.mesh import make_mesh
+    from mermaid_classifier_tpu_torch.parallel.preflight import (
+        C2_GEOMETRY,
+        production_geometry_report,
+    )
+    from mermaid_classifier_tpu_torch.parallel.sharded_serve import (
+        load_sharded_predictor,
+    )
+    from mermaid_classifier_tpu_torch.parallel.sharded_train import (
+        ShardedHeadTrainer,
+    )
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import (
+        MLPClassifier,
+        classifier_from_arrays,
+    )
+
+    device = "cuda"
+    mesh = make_mesh(device=device)
+    try:
+        if dist.get_backend() != "nccl" or mesh.device != torch.device("cuda", 0):
+            fail(f"parallel: mesh {mesh} over {dist.get_backend()}, want nccl on cuda:0")
+        rng = np.random.default_rng(SEED + 17)
+        h, w = IMAGE_HW
+
+        # Sharded extraction at full width: one crop per image per rank.
+        t0 = time.perf_counter()
+        image = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        pts = points(rng, 2 * PATCHES)
+        crop_total = 0
+        extract = []
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(config, compute_dtype=dtype)
+            meshed = build_extractor(variables, cfg, device=device,
+                                     backbone_impl="folded", mesh=mesh)
+            single = build_extractor(variables, cfg, device=device,
+                                     backbone_impl="folded")
+            patch_crop.launches = 0
+            got = meshed.extract_features(image, pts)
+            launches = patch_crop.launches
+            want = single.extract_features(image, pts)
+            if launches != 1:
+                fail(f"parallel: {launches} crop launches for one {dtype} image")
+            crop_total += launches
+            mae = float(np.abs(got - want).mean())
+            bitwise = bool(np.array_equal(got, want))
+            if got.shape != (len(pts), 4096) or not (bitwise or mae <= 1e-4):
+                fail(f"parallel: mesh extractor {dtype} {got.shape}, MAE {mae}")
+            took = {name: cuda_ms(lambda e=e: e.extract_features_device(image, pts),
+                                  iters=5, warmup=1)
+                    for name, e in (("mesh", meshed), ("single", single))}
+            extract.append(f"{dtype} {'bitwise' if bitwise else f'MAE {mae:.2e}'}"
+                           f" ({took['mesh']:.2f} ms vs {took['single']:.2f} ms)")
+        results["patch_crop"]["launches"] += crop_total
+        say(f"parallel extract: {mesh}, B0 224 folded, {len(pts)} points:"
+            f" {', '.join(extract)}; crop launches {crop_total}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+
+        # Sharded serving over the serve phase's artifact.
+        t0 = time.perf_counter()
+        art = tmp / "parallel_head"
+        art.mkdir()
+        write_head_artifact(art)
+        feats = rng.standard_normal((1001, 4096), dtype=np.float32)
+        a = load_sharded_predictor(art, mesh).predict_proba(feats)
+        b = load_predictor(art, device=device).predict_proba(feats)
+        serve_diff = float(np.abs(a - b).max())
+        if a.shape != (1001, 80) or not serve_diff <= 1e-6:
+            fail(f"parallel: sharded predictor {a.shape}, max |dp| {serve_diff}")
+        say(f"parallel serve: 1001 rows, max |dp| vs load_predictor {serve_diff:.2e}"
+            f" ({time.perf_counter() - t0:.1f} s)")
+
+        # ShardedHeadTrainer at (1, 1) against one classifier step.
+        t0 = time.perf_counter()
+        sizes = (4096, *TRAIN_HIDDEN, TRAIN_CLASSES)
+        init = MLPClassifier(TRAIN_HIDDEN, random_state=0, device="cpu")
+        init._first_fit(sizes[0], None, np.arange(TRAIN_CLASSES))
+        x = rng.standard_normal((200, 4096), dtype=np.float32)
+        y = rng.integers(0, TRAIN_CLASSES, 200)
+        trainer = ShardedHeadTrainer(mesh, sizes, learning_rate=TRAIN_LR)
+        params = trainer.shard_params({"W": init.coefs_, "b": init.intercepts_})
+        params, _, loss = trainer.train_step(
+            params, trainer.init_opt_state(params),
+            *trainer.place_batch(x, y, np.ones(200, np.float32)), 200.0)
+        clf = classifier_from_arrays(init.coefs_, init.intercepts_,
+                                     classes=list(range(TRAIN_CLASSES)),
+                                     learning_rate_init=TRAIN_LR, batch_size=200,
+                                     shuffle=False, device=device)
+        clf.partial_fit(x, y)
+        loss_rel = abs(loss / clf.loss_curve_[-1] - 1.0)
+        frob = max(float(np.linalg.norm(u - v) / np.linalg.norm(v))
+                   for u, v in zip(trainer.unshard_params(params)["W"], clf.coefs_))
+        if not (loss_rel <= 1e-5 and frob <= 1e-5):
+            fail(f"parallel: ShardedHeadTrainer vs classifier loss rel {loss_rel},"
+                 f" weights rel Frobenius {frob}")
+        say(f"parallel head trainer (1, 1): loss rel {loss_rel:.2e}, weights rel"
+            f" Frobenius {frob:.2e} vs one MLPClassifier step"
+            f" ({time.perf_counter() - t0:.1f} s)")
+
+        # Resident training on the mesh against the single-device run.
+        t0 = time.perf_counter()
+        means = (rng.standard_normal((TRAIN_CLASSES, 4096))
+                 * TRAIN_MEAN_STD).astype(np.float32)
+        X, y_idx = train_features(rng, means, TRAIN_ROWS)
+        idx = np.arange(TRAIN_ROWS)
+        call = idx[:TRAIN_CHUNK]
+
+        def call_step_ms(clf, batch):
+            """Median and least ms per step of one captured resident call."""
+            clf.partial_fit_resident(call, y_idx[:TRAIN_CHUNK])  # capture
+            times = []
+            for _ in range(7):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                clf.partial_fit_resident(call, y_idx[:TRAIN_CHUNK])
+                ev[1].record()
+                ev[1].synchronize()
+                times.append(ev[0].elapsed_time(ev[1]) / (TRAIN_CHUNK // batch))
+            times.sort()
+            return times[len(times) // 2], times[0]
+
+        step_ms = {}
+        gaps = []
+        for dtype in ("float32", "int8"):
+            runs = {}
+            for name, m in (("mesh", mesh), ("single", None)):
+                clf = MLPClassifier(TRAIN_HIDDEN, learning_rate_init=TRAIN_LR,
+                                    random_state=0, device=device, mesh=m)
+                clf.set_resident_features(X, dtype=dtype)
+                clf.partial_fit_resident(idx, y_idx, classes=list(range(TRAIN_CLASSES)))
+                runs[name] = clf
+            mm, ss = runs["mesh"], runs["single"]
+            loss_gap = max(abs(p - q) for p, q in zip(mm.loss_curve_, ss.loss_curve_))
+            w_gap = max(float(np.abs(p - q).max()) for p, q in zip(mm.coefs_, ss.coefs_))
+            close = all(np.allclose(p, q, rtol=1e-5, atol=1e-6)
+                        for p, q in zip(mm.coefs_, ss.coefs_))
+            if not (loss_gap <= 1e-6 and close):
+                fail(f"parallel: resident {dtype} mesh vs single loss gap"
+                     f" {loss_gap}, weights max |dW| {w_gap}")
+            gaps.append(f"{dtype} loss {loss_gap:.1e}, weights max |dW| {w_gap:.1e}")
+            if dtype == "float32":
+                for name, clf in runs.items():
+                    step_ms[name] = call_step_ms(clf, 200)
+                # The single-device step at the rows one rank of a 2- and a
+                # 4-rank mesh would take if batches were regrouped by owner.
+                for batch in (100, 50):
+                    ss.set_params(batch_size=batch)
+                    step_ms[f"single, batch {batch}"] = call_step_ms(ss, batch)
+            del runs, mm, ss
+        say(f"parallel resident ({TRAIN_ROWS} rows, captured steps): "
+            + "; ".join(gaps) + f" ({time.perf_counter() - t0:.1f} s)")
+        say(f"time parallel step on: {smi}")
+        say(f"time parallel step ({TRAIN_CHUNK}-row resident call, Adam steps of"
+            " 200 unless named, median of 7 calls, CUDA events around one call):"
+            + ";".join(f" {name} {med:.4f} ms per step (min {low:.4f})"
+                       for name, (med, low) in step_ms.items()))
+
+        # The preflight at C2 against a real int8 buffer of that size.
+        t0 = time.perf_counter()
+        report = production_geometry_report(mesh)
+        pre_s = time.perf_counter() - t0
+        n = C2_GEOMETRY["n_rows"]
+        stored = np.zeros((n, C2_GEOMETRY["dim"]), np.int8)
+        before = torch.cuda.memory_allocated()
+        real = MLPClassifier(TRAIN_HIDDEN, device=device, mesh=mesh)
+        real.set_resident_features_storage(stored, np.ones(n, np.float32))
+        real_gb = (real._resident_X.numel() * real._resident_X.element_size()) / 1e9
+        alloc_gb = (torch.cuda.memory_allocated() - before) / 1e9
+        want_gb = report["resident_epoch"]["buffer_gb_per_device"]
+        if round(real_gb, 2) != want_gb:
+            fail(f"parallel: preflight buffer {want_gb} GB, real buffer {real_gb} GB")
+        del real, stored
+        say(f"parallel preflight at C2 ({pre_s:.1f} s on meta): extract"
+            f" {report['extract_b0']}, resident {report['resident_epoch']}, serve"
+            f" {report['serve_head']}; real int8 buffer {real_gb:.4f} GB"
+            f" (allocated {alloc_gb:.4f} GB with its scales) vs {want_gb} GB")
+    finally:
+        dist.destroy_process_group()
+
+    # The multi-process dryrun: 2 x 2 gloo CPU ranks in a subprocess.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mermaid_classifier_tpu_torch.scripts.dryrun_multihost",
+         "--processes", "4", "--local-ranks", "2", "--timeout", "120"],
+        capture_output=True, text=True, timeout=180,
+        env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)))
+    if proc.returncode != 0 or "MULTIHOST_DRYRUN_OK: 4 processes" not in proc.stdout:
+        fail(f"parallel: dryrun_multihost exit {proc.returncode}:"
+             f" {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    say(f"parallel dryrun: 4 gloo ranks, 2 per host, OK"
+        f" ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
     import torch
 
@@ -3649,6 +3873,7 @@ def main() -> None:
             timed("lifecycle", phase_lifecycle, variables, config, extractor, recipe,
                   Path(tmp), smi)
         timed("jobs", phase_jobs, bucket, Path(tmp), smi)
+        timed("parallel", phase_parallel, variables, config, results, Path(tmp), smi)
     say(f"phases: {time.perf_counter() - t_start:.1f} s in all")
 
     sources = {

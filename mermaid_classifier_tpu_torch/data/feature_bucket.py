@@ -161,14 +161,20 @@ class FeatureBucketBuilder:
         decode_image=None,
         decode_workers: int = 8,
         prefetch: int = 16,
+        write_outputs: bool = True,
     ) -> None:
         self.store = store
         self.source_bucket = source_bucket
         self.target_bucket = target_bucket
         self.extractor = extractor
         self.skip_existing = skip_existing
-        self.progress_log = Path(progress_log) if progress_log else None
-        self.error_log = Path(error_log) if error_log else None
+        # False on every rank of a mesh but rank 0: the rank extracts its
+        # share of every image and writes nothing (no features, no
+        # annotations copy, no logs).
+        self.write_outputs = bool(write_outputs)
+        self.progress_log = (Path(progress_log) if progress_log and write_outputs
+                             else None)
+        self.error_log = Path(error_log) if error_log and write_outputs else None
         self._decode_image = decode_image or decode_image_bytes
         # Decode-ahead: fetch+decode of upcoming images overlaps the device
         # extraction of the current one; the in-flight window caps host
@@ -305,7 +311,8 @@ class FeatureBucketBuilder:
         source_id = str(source_id)
         result = SourceResult(source_id=source_id)
         annotations = self.read_annotations(source_id)
-        self.upload_annotations_csv(source_id)
+        if self.write_outputs:
+            self.upload_annotations_csv(source_id)
 
         existing = (
             self.list_existing_feature_image_ids(source_id)
@@ -362,8 +369,10 @@ class FeatureBucketBuilder:
         def finalize(pending) -> None:
             image_id, rowcols, readback = pending
             try:
-                n_points = self._write_features(
-                    source_id, image_id, rowcols, readback.wait()
+                features = readback.wait()
+                n_points = (
+                    self._write_features(source_id, image_id, rowcols, features)
+                    if self.write_outputs else len(rowcols)
                 )
             except Exception as exc:  # noqa: BLE001 - per-image isolation
                 record_failure(image_id, exc)

@@ -25,6 +25,15 @@ fused-MBConv kernel for every fusable block), ``"folded"`` (folded weights,
 plain PyTorch blocks) or ``"module"`` (the ``nn.Module`` forward, the
 counterpart of the JAX package's ``"flax"``). The JAX default "folded" was a
 TPU measurement; the port's default is the path that runs its kernels.
+
+With a ``mesh`` (``parallel.mesh``; every rank is given the same images) the
+trunk runs data-parallel, ``folded`` or ``module`` (``fused`` is
+single-device, as in JAX): an image's points pad to a multiple of
+``backbone_batch`` (which the mesh size must divide), each chunk of
+``backbone_batch`` points splits into one contiguous share per rank, each
+rank crops only its shares with the crop kernel (one launch per image) and
+runs them through its replica of the trunk, and one all-gather gives every
+rank every feature, in point order.
 """
 
 from __future__ import annotations
@@ -111,6 +120,7 @@ class FeatureExtractor:
         point_bucket: int = 32,
         image_bucket: int = 256,
         backbone_impl: str = "fused",
+        mesh: Any = None,
     ) -> None:
         self.config = config or EfficientNetConfig()
         self.device = _resolve_device(device)
@@ -124,7 +134,29 @@ class FeatureExtractor:
             )
         self.backbone_impl = backbone_impl
         self.dtype = compute_dtype(self.config)
-        if backbone_impl == "module":
+        # Multi-device: the trunk's batch shards over every rank of the mesh
+        # (parallel/sharded_extract), so backbone_batch must divide evenly.
+        self.mesh = mesh
+        if mesh is not None:
+            if backbone_impl == "fused":
+                raise ValueError(
+                    "fused backbone_impl is single-device; the mesh path"
+                    " shards the folded or module forward."
+                )
+            mesh.check_device(self.device)
+            if self.backbone_batch % mesh.size != 0:
+                raise ValueError(
+                    f"backbone_batch={self.backbone_batch} must be divisible"
+                    f" by the {mesh.size}-device mesh."
+                )
+            from mermaid_classifier_tpu_torch.parallel.sharded_extract import (
+                make_sharded_feature_fn,
+            )
+
+            self._sharded = make_sharded_feature_fn(
+                mesh, variables, self.config, backbone_impl=backbone_impl)
+            self._forward = self._sharded.forward
+        elif backbone_impl == "module":
             self._forward = _module_forward(variables, self.config, self.device)
         else:
             weights = fused_mbconv.to_device(
@@ -230,6 +262,14 @@ class FeatureExtractor:
         if n == 0:
             return torch.zeros((0, self.feature_dim), device=self.device)
         bb = self.backbone_batch
+        if self.mesh is not None:
+            # Zero patches up to whole chunks, each chunk sharded.
+            pad = -n % bb
+            if pad:
+                patches = torch.cat(
+                    [patches, patches.new_zeros((pad, *patches.shape[1:]))])
+            outs = [self._sharded(patches[i: i + bb]) for i in range(0, n + pad, bb)]
+            return torch.cat(outs)[:n]
         with torch.inference_mode():
             outs = [self._forward(patches[i : i + bb]) for i in range(0, n, bb)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -239,9 +279,36 @@ class FeatureExtractor:
 
     def extract_features_device(self, image: np.ndarray, rowcols) -> torch.Tensor:
         """Per-image features as a (P, D) device tensor (no host readback)."""
+        if self.mesh is not None:
+            return self._extract_sharded(image, rowcols)
         return self.features_for_patches_device(
             self.extract_patches(image, rowcols)
         )
+
+    def _extract_sharded(self, image: np.ndarray, rowcols) -> torch.Tensor:
+        """The mesh path of ``extract_features_device``: this rank's share
+        of every chunk of points, cropped in one launch, through its trunk
+        replica, then all-gathered back into point order."""
+        rowcols = self._validate_rowcols(image, rowcols)
+        n = rowcols.shape[0]
+        if n == 0:
+            return torch.zeros((0, self.feature_dim), device=self.device)
+        mesh, bb, ps = self.mesh, self.backbone_batch, self.config.patch_size
+        share = bb // mesh.size
+        starts = self._pad_starts(rowcols, bb)
+        n_chunks = len(starts) // bb
+        mine = starts.reshape(n_chunks, mesh.size, share, 2)[:, mesh.rank]
+        patches = extract_patches(
+            self._upload(image), mine.reshape(-1, 2), ps, self._scale,
+            self._bias, out_dtype=self.dtype, pad=ps // 2,
+        )
+        with torch.inference_mode():
+            local = torch.cat([self._forward(patches[c * share:(c + 1) * share])
+                               for c in range(n_chunks)])
+            feats = self._sharded.gather(local)
+        # Rank-major (rank, chunk, share) back to point order.
+        feats = feats.view(mesh.size, n_chunks, share, -1).transpose(0, 1)
+        return feats.reshape(n_chunks * bb, -1)[:n]
 
     def extract_features_async(self, image: np.ndarray, rowcols) -> FeatureReadback:
         """Dispatch one image and queue its features' readback without

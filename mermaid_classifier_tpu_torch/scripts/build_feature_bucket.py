@@ -16,6 +16,13 @@ cpu`` runs the kernels' plain versions). The script also runs as a file
 which is how a job launcher starts its workers. A trunk in any dtype but float32
 always runs the device-numerics gate first. Exit code 1 when any image
 failed or no requested source is available.
+
+``--mesh-devices N`` shards the trunk's batch over N devices, one process
+per device (``torchrun --nproc-per-node N -m
+mermaid_classifier_tpu_torch.scripts.build_feature_bucket --mesh-devices N
+...``), every process reading the same images; rank 0 writes the features,
+the annotations copy and the logs. Without ``--backbone-impl`` the mesh
+runs ``folded`` (``fused`` is single-device and raises with a mesh).
 """
 
 from __future__ import annotations
@@ -135,9 +142,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="conv padding semantics; pyspacer-lineage weights need tf_same",
     )
     parser.add_argument(
-        "--backbone-impl", default="fused", choices=("module", "folded", "fused"),
-        help="trunk: fused (default: the fused-MBConv kernel), folded (plain"
-        " PyTorch blocks) or module (the nn.Module forward)",
+        "--backbone-impl", default=None, choices=("module", "folded", "fused"),
+        help="trunk: fused (default: the fused-MBConv kernel; folded with"
+        " --mesh-devices), folded (plain PyTorch blocks) or module (the"
+        " nn.Module forward)",
+    )
+    parser.add_argument(
+        "--mesh-devices", type=int, default=None,
+        help="shard the backbone batch over an N-device mesh, one process"
+        " per device under torchrun (default: single device)",
     )
     parser.add_argument("--device", default="cuda",
                         help="torch device of the extractor (default cuda)")
@@ -202,6 +215,12 @@ def resolve_backbone(args):
     return weights, config
 
 
+def backbone_impl_for(args) -> str:
+    """``--backbone-impl``, else ``fused`` on one device and ``folded`` with
+    ``--mesh-devices`` (the sharded trunk's default, as in the JAX CLI)."""
+    return args.backbone_impl or ("folded" if args.mesh_devices else "fused")
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
@@ -209,16 +228,27 @@ def main(argv: list[str] | None = None) -> int:
     source_ids = parse_source_ids(args)
     logger.info("sources to process: %s", source_ids)
 
+    weights, config = resolve_backbone(args)
+    from mermaid_classifier_tpu_torch.parallel.mesh import cli_mesh
+
+    with cli_mesh(args.mesh_devices, device=args.device,
+                  command="mermaid_classifier_tpu_torch.scripts.build_feature_bucket"
+                  ) as mesh:
+        return _run(args, source_ids, weights, config, mesh)
+
+
+def _run(args, source_ids, weights, config, mesh) -> int:
     from mermaid_classifier_tpu_torch.data.feature_bucket import (
         FeatureBucketBuilder,
     )
     from mermaid_classifier_tpu_torch.data.store import get_default_store
     from mermaid_classifier_tpu_torch.models.extractor import build_extractor
 
-    weights, config = resolve_backbone(args)
     extractor = build_extractor(
-        weights, config=config, device=args.device,
-        backbone_batch=args.backbone_batch, backbone_impl=args.backbone_impl,
+        weights, config=config,
+        device=args.device if mesh is None else mesh.device,
+        backbone_batch=args.backbone_batch,
+        backbone_impl=backbone_impl_for(args), mesh=mesh,
     )
     builder = FeatureBucketBuilder(
         get_default_store(),
@@ -229,6 +259,7 @@ def main(argv: list[str] | None = None) -> int:
         progress_log=args.progress_log,
         error_log=args.error_log,
         decode_workers=args.decode_workers,
+        write_outputs=mesh is None or mesh.rank == 0,
     )
     available, _missing = builder.filter_to_available_sources(source_ids)
     if not available:

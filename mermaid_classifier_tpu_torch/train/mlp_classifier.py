@@ -46,8 +46,30 @@ bfloat16 or int8 storage (per-row ``absmax / 127`` scales, the JAX formula
 bit for bit), in about 256 MB slabs through pinned staging; each epoch then
 moves only row indices.
 
-Left out here: the JAX ``mesh`` option and the TPU's ahead-of-time program
-warming (``warm_resident_programs``): the first call captures the graph.
+With a ``mesh`` (``parallel.mesh.make_mesh``; every rank passes the same
+global inputs, as under ``torchrun``) the step trains data-parallel over all
+of the mesh's ranks, parameters replicated, as the JAX mesh path does. Each
+mini-batch pads with weight-0 rows to the rank-count multiple; every rank
+knows the global ``sum(w)`` from the whole batch's labels, computes
+``sum(w * ce) / sum(w)`` over the rows it takes, adds the L2 term on rank 0
+only, and one all-reduce sums the gradients and the loss. A streamed call
+stages its rows on every rank and each rank takes its contiguous slice of
+the padded batch. The resident buffer is row-sharded: rows pad to the
+rank-count multiple and rank ``r`` holds block ``r``; each step every rank
+runs the whole padded batch with the rows it does not own masked to weight
+0. The mask keeps one batch shape, which the graph captures once whatever
+the split of a batch over the owners. It is not free: regrouping each
+batch by owner on the host would cut a rank's rows to about B/W (padded to
+the largest share of the call), and on an H100 the captured step at 100
+and 50 rows costs 89% and 85% of the 200-row step (``PERF.md`` §6), so the
+regrouped step is queued for a multi-card run that can measure it.
+Resident predictions and evaluations run the head on the rows each rank
+holds and all-reduce the zero-padded (n, K) probabilities, or the two
+counts. On a card the mesh step is captured with the NCCL all-reduce
+inside the graph, like the single-device step.
+
+Left out here: the TPU's ahead-of-time program warming
+(``warm_resident_programs``): the first call captures the graph.
 """
 
 from __future__ import annotations
@@ -92,6 +114,28 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+def adam_update(params, grads, adam: dict, lr: float, b1: float, b2: float,
+                eps: float) -> None:
+    """optax.adam(eps_root=0) in place: moments, bias correction by the
+    device step count ``adam["count"]``, ``m_hat / (sqrt(v_hat) + eps)``,
+    times -lr. ``adam["mu"]`` / ``adam["nu"]`` hold ``{"W": [...], "b":
+    [...]}`` in the order of ``params`` (weights, then biases)."""
+    mu = [*adam["mu"]["W"], *adam["mu"]["b"]]
+    nu = [*adam["nu"]["W"], *adam["nu"]["b"]]
+    adam["count"].add_(1)
+    t = adam["count"].to(torch.float32)
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    mu_hat = torch._foreach_div(mu, 1.0 - b1 ** t)
+    nu_hat = torch._foreach_div(nu, 1.0 - b2 ** t)
+    torch._foreach_sqrt_(nu_hat)
+    torch._foreach_add_(nu_hat, eps)
+    torch._foreach_div_(mu_hat, nu_hat)
+    torch._foreach_add_(params, mu_hat, alpha=-lr)
+
+
 class _StepRunner:
     """The fixed-shape Adam step's static buffers for one (source, B,
     hyperparameters) and, on a CUDA device, the captured graph of the step.
@@ -102,9 +146,13 @@ class _StepRunner:
     its scale and the class weights alive as long as the graph may read
     them."""
 
-    def __init__(self, device, src, scale, class_w, batch: int, capacity: int):
+    def __init__(self, device, src, scale, class_w, batch: int, capacity: int,
+                 shard=None):
         self.src, self.scale, self.class_w = src, scale, class_w
         self.batch, self.capacity = batch, capacity
+        # On a mesh: which rows of each batch this rank takes (see
+        # MLPClassifier._adam_step); None on one device.
+        self.shard = shard
         self.batches = torch.zeros((capacity, 2 * batch + 1), dtype=torch.int64,
                                    device=device)
         self.losses = torch.zeros(capacity, dtype=torch.float32, device=device)
@@ -113,7 +161,7 @@ class _StepRunner:
 
     def step(self, clf: "MLPClassifier") -> None:
         clf._adam_step(self.src, self.scale, self.class_w, self.batches,
-                       self.losses, self.counter, self.batch)
+                       self.losses, self.counter, self.batch, self.shard)
 
     def capture(self, clf: "MLPClassifier") -> None:
         """Warm the step up on a side stream (PyTorch's whole-network capture
@@ -136,8 +184,12 @@ class _StepRunner:
         del saved
         self.counter.zero_()
         graph = torch.cuda.CUDAGraph()
+        # A mesh step holds an NCCL all-reduce: capture it in thread-local
+        # mode, so the process group's watchdog thread may keep querying
+        # its events while this thread captures.
+        mode = {} if self.shard is None else {"capture_error_mode": "thread_local"}
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, **mode):
                 self.step(clf)
         except Exception as exc:
             raise RuntimeError(
@@ -202,6 +254,7 @@ class MLPClassifier:
         beta_2: float = 0.999,
         epsilon: float = 1e-8,
         class_weight: dict[Any, float] | None = None,
+        mesh: Any = None,
         init: str = "reference",
         device="cuda",
     ):
@@ -238,6 +291,11 @@ class MLPClassifier:
         # materialized in classes_ order on the first partial_fit.
         self.class_weight = class_weight
         self.device = _resolve_device(device)
+        # Optional parallel.mesh.Mesh: data-parallel training over its ranks
+        # (see the module docstring); its device must be ``device``.
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.check_device(self.device)
 
     # --- sklearn-compatible coefficient views -----------------------------
 
@@ -391,76 +449,107 @@ class MLPClassifier:
 
     # --- the step ---------------------------------------------------------------
 
-    def _adam_step(self, src, scale, class_w, batches, losses, counter, batch: int):
+    def _adam_step(self, src, scale, class_w, batches, losses, counter,
+                   batch: int, shard=None):
         """One Adam step on row ``counter`` of ``batches``: gather, forward,
         the weighted CE plus L2 on the real row count, gradients, optax's
         Adam update in place, the loss into ``losses[counter]``. No host
-        sync: the same code runs eagerly and under CUDA graph capture."""
+        sync: the same code runs eagerly and under CUDA graph capture.
+
+        ``shard`` is None on one device. On a mesh it is ``("slice", a,
+        b)``, this rank's positions ``[a, b)`` of a streamed batch, or
+        ``("owner", lo, hi)``, the rows ``[lo, hi)`` of the resident buffer
+        this rank holds: it runs the whole batch with the rows of other
+        ranks at weight 0. The data loss divides by the whole batch's
+        weight sum, the L2 term enters on rank 0, and one all-reduce sums
+        the gradients and the loss over the mesh."""
         weights, biases = self._params["W"], self._params["b"]
         row = batches.index_select(0, counter)[0]
         idx, yb, n_real = row[:batch], row[batch:2 * batch], row[2 * batch]
+        # Rows past the real count are the padding: weight 0.
+        mask = torch.arange(batch, device=row.device) < n_real
+        wb = class_w.index_select(0, yb) * mask
+        w_sum = wb.sum()
+        if shard is not None:
+            kind, lo, hi = shard
+            if kind == "slice":
+                idx, yb, wb = idx[lo:hi], yb[lo:hi], wb[lo:hi]
+            else:
+                owned = (idx >= lo) & (idx < hi)
+                idx = torch.where(owned, idx - lo, torch.zeros_like(idx))
+                wb = wb * owned
         x = src.index_select(0, idx).to(torch.float32)
         if scale is not None:
             x = x * scale.index_select(0, idx)[:, None]
-        # Rows past the real count are the padding: weight 0.
-        mask = torch.arange(batch, device=x.device) < n_real
-        wb = class_w.index_select(0, yb) * mask
         n_real_f = n_real.to(torch.float32)
         logits = mlp_logits(weights, biases, x)
         ce = -F.log_softmax(logits, dim=1).gather(1, yb[:, None])[:, 0]
         sq = sum((w * w).sum() for w in weights)
         l2 = torch.full_like(n_real_f, 0.5 * self.alpha) / n_real_f
-        loss = (wb * ce).sum() / wb.sum() + l2 * sq
+        loss = (wb * ce).sum() / w_sum
+        if shard is None or self.mesh.rank == 0:
+            loss = loss + l2 * sq
         params = [*weights, *biases]
         grads = torch.autograd.grad(loss, params)
-        b1, b2 = float(self.beta_1), float(self.beta_2)
-        adam = self._adam
-        mu = [*adam["mu"]["W"], *adam["mu"]["b"]]
-        nu = [*adam["nu"]["W"], *adam["nu"]["b"]]
         with torch.no_grad():
-            # optax.adam(eps_root=0): moments, bias correction by the
-            # device step count, m_hat / (sqrt(v_hat) + eps), times -lr.
-            adam["count"].add_(1)
-            t = adam["count"].to(torch.float32)
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-            mu_hat = torch._foreach_div(mu, 1.0 - b1 ** t)
-            nu_hat = torch._foreach_div(nu, 1.0 - b2 ** t)
-            torch._foreach_sqrt_(nu_hat)
-            torch._foreach_add_(nu_hat, float(self.epsilon))
-            torch._foreach_div_(mu_hat, nu_hat)
-            torch._foreach_add_(params, mu_hat, alpha=-float(self.learning_rate_init))
+            if shard is not None:
+                from mermaid_classifier_tpu_torch.parallel.mesh import all_reduce_flat
+
+                *grads, loss = all_reduce_flat([*grads, loss.detach()],
+                                               self.mesh.group)
+            adam_update(params, grads, self._adam, float(self.learning_rate_init),
+                        float(self.beta_1), float(self.beta_2), float(self.epsilon))
             losses.index_copy_(0, counter, loss.detach().view(1))
             counter.add_(1)
 
     def _run_steps(self, kind: str, src, scale, idx_shuf: np.ndarray,
                    y_shuf: np.ndarray, batch: int) -> tuple[np.ndarray, np.ndarray]:
         """Pad to ``n_batches x batch`` rows (padding rows point at row 0,
-        class 0), run one step per mini-batch on the runner of this source
-        and geometry, and return the step losses and real row counts."""
+        class 0), on a mesh each batch further to the rank-count multiple
+        (weight-0 rows past the real count), run one step per mini-batch on
+        the runner of this source and geometry, and return the step losses
+        and real row counts."""
         n_samples = len(idx_shuf)
         n_batches = -(-n_samples // batch)
         pad = n_batches * batch - n_samples
-        packed = np.zeros((n_batches, 2 * batch + 1), dtype=np.int64)
-        for col, values in ((0, idx_shuf), (batch, y_shuf)):
+        mesh = self._mesh()
+        width = batch if mesh is None else -(-batch // mesh.size) * mesh.size
+        packed = np.zeros((n_batches, 2 * width + 1), dtype=np.int64)
+        for col, values in ((0, idx_shuf), (width, y_shuf)):
             padded = np.zeros(n_batches * batch, dtype=np.int64)
             padded[:n_samples] = values
             packed[:, col:col + batch] = padded.reshape(n_batches, batch)
-        packed[:, 2 * batch] = batch
-        packed[-1, 2 * batch] = batch - pad
-        key = (kind, batch, float(self.learning_rate_init), float(self.beta_1),
+        packed[:, 2 * width] = batch
+        packed[-1, 2 * width] = batch - pad
+        shard = None
+        if mesh is not None and kind == "stream":
+            share = width // mesh.size
+            shard = ("slice", mesh.rank * share, (mesh.rank + 1) * share)
+        elif mesh is not None:
+            if self._resident_shard is None:
+                raise ValueError(
+                    "the resident buffer was uploaded without a mesh; call"
+                    " set_resident_features again after attaching one")
+            shard = ("owner", *self._resident_shard)
+        key = (kind, width, float(self.learning_rate_init), float(self.beta_1),
                float(self.beta_2), float(self.epsilon), float(self.alpha))
         runner = self._runners.get(key)
         if (runner is None or runner.src is not src or runner.scale is not scale
-                or runner.capacity < n_batches):
+                or runner.capacity < n_batches or runner.shard != shard):
             runner = _StepRunner(self.device, src, scale,
-                                 self._class_weights_on_device(), batch,
-                                 1 << max(n_batches - 1, 0).bit_length())
+                                 self._class_weights_on_device(), width,
+                                 1 << max(n_batches - 1, 0).bit_length(), shard)
             self._runners[key] = runner
         losses = runner.run(self, packed).astype(np.float64)
-        return losses, packed[:, 2 * batch].astype(np.float64)
+        return losses, packed[:, 2 * width].astype(np.float64)
+
+    def _mesh(self):
+        """The mesh this classifier trains over, checked against its
+        device, or None."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            mesh.check_device(self.device)
+        return mesh
 
     def _drop_runners(self, kind: str) -> None:
         for key in [k for k in getattr(self, "_runners", {}) if k[0] == kind]:
@@ -625,6 +714,7 @@ class MLPClassifier:
         self._drop_runners("resident")
         self._resident_X = None
         self._resident_scale = None
+        self._resident_shard = None
 
     def set_resident_features(
         self, X: np.ndarray, dtype: str = "float32", wait_rows=None
@@ -653,6 +743,7 @@ class MLPClassifier:
         self._drop_resident()
         self._resident_n_rows = int(X.shape[0])
         self._resident_dtype = dtype
+        X, wait_rows, n_rows = self._local_block(X, wait_rows)
         # The host-side quantization is timed apart from the transfer.
         timings: dict[str, float] = {"quantize_seconds": 0.0}
         scale = None
@@ -666,12 +757,43 @@ class MLPClassifier:
             timings["quantize_seconds"] += time.perf_counter() - t_q
         self._resident_X = self._upload_rows(
             X, _STORAGE_DTYPES[dtype], row_scale=scale, timings=timings,
-            wait_rows=wait_rows,
+            wait_rows=wait_rows, n_rows=n_rows,
         )
-        self._resident_scale = (
-            None if scale is None else torch.from_numpy(scale).to(self.device))
+        self._resident_scale = self._scale_on_device(scale, n_rows)
         self._resident_upload_timings = timings
         return self
+
+    def _local_block(self, X, wait_rows):
+        """The rows of ``X`` this process stores, the ``wait_rows`` of
+        their upload, and the buffer's row count. On one device that is all
+        of ``X``. On a mesh the buffer is row-sharded: rows pad to the
+        rank-count multiple, rank ``r`` stores block ``r`` of
+        ``ceil(n / ranks)`` rows (its zero-padded tail is never indexed)
+        and records the block's global span in ``_resident_shard``."""
+        n = int(X.shape[0])
+        mesh = self._mesh()
+        if mesh is None:
+            self._resident_shard = None
+            return X, wait_rows, n
+        rows = -(-n // mesh.size)
+        lo = mesh.rank * rows
+        self._resident_shard = (lo, lo + rows)
+        if wait_rows is not None:
+            outer = wait_rows
+
+            def wait_rows(k: int) -> None:
+                outer(lo + k)
+        return X[lo:min(lo + rows, n)], wait_rows, rows
+
+    def _scale_on_device(self, scale, n_rows: int):
+        """The int8 row scales on the device, padded with ones to the
+        buffer's ``n_rows`` (a mesh block's tail), or None."""
+        if scale is None:
+            return None
+        scale = np.asarray(scale, np.float32)
+        if len(scale) < n_rows:
+            scale = np.concatenate([scale, np.ones(n_rows - len(scale), np.float32)])
+        return torch.from_numpy(scale).to(self.device)
 
     def set_resident_features_storage(
         self,
@@ -725,13 +847,15 @@ class MLPClassifier:
         self._resident_n_rows = int(stored.shape[0])
         self._resident_dtype = dtype
         self._resident_upload_timings = {"quantize_seconds": 0.0}
-        self._resident_X = self._upload_rows(stored, stored.dtype,
-                                             wait_rows=wait_rows)
-        # Reached after the last slab's wait_rows(n_rows): the scale vector
-        # is final.
-        self._resident_scale = (
-            None if scale is None else
-            torch.from_numpy(np.asarray(scale, np.float32)).to(self.device))
+        local, wait_rows, n_rows = self._local_block(stored, wait_rows)
+        self._resident_X = self._upload_rows(local, stored.dtype,
+                                             wait_rows=wait_rows, n_rows=n_rows)
+        # Reached after the last slab's wait_rows: the scale vector is final
+        # over this process's rows.
+        if scale is not None and self._resident_shard is not None:
+            lo = self._resident_shard[0]
+            scale = np.asarray(scale)[lo:lo + local.shape[0]]
+        self._resident_scale = self._scale_on_device(scale, n_rows)
         return self
 
     def _upload_rows(
@@ -742,6 +866,7 @@ class MLPClassifier:
         timings: dict[str, float] | None = None,
         wait_rows=None,
         chunk_bytes: int = 1 << 28,
+        n_rows: int | None = None,
     ) -> torch.Tensor:
         """``X`` into one preallocated device buffer of ``dtype`` in about
         ``chunk_bytes`` slabs. Each slab waits on ``wait_rows`` for its rows,
@@ -749,9 +874,12 @@ class MLPClassifier:
         (``row_scale``: int8, the RESIDENT_DTYPES formula) into pinned
         staging, and is copied up without blocking the host; two staging
         slabs alternate, so the next slab's host work overlaps the copy.
-        On the CPU the slabs are written into the buffer directly."""
+        On the CPU the slabs are written into the buffer directly. A buffer
+        of ``n_rows`` > len(X) rows gets a zero tail."""
         n, dim = X.shape
-        buf = torch.empty((n, dim), dtype=dtype, device=self.device)
+        buf = torch.empty((n if n_rows is None else n_rows, dim), dtype=dtype,
+                          device=self.device)
+        buf[n:].zero_()
         if n == 0:
             return buf
         row_bytes = dim * torch.empty((), dtype=dtype).element_size()
@@ -909,7 +1037,7 @@ class MLPClassifier:
         idx = np.asarray(indices, dtype=np.int64)
         if idx.ndim != 1:
             raise ValueError(f"indices must be 1-D, got {idx.shape}")
-        n_rows = int(self._resident_X.shape[0])
+        n_rows = int(getattr(self, "_resident_n_rows", self._resident_X.shape[0]))
         if idx.size and (idx.min() < 0 or idx.max() >= n_rows):
             raise ValueError(
                 f"indices out of range for the {n_rows}-row resident set."
@@ -917,17 +1045,46 @@ class MLPClassifier:
         return torch.from_numpy(idx).to(self.device)
 
     def _resident_rows(self, idx: torch.Tensor) -> torch.Tensor:
-        """Gathered resident rows, upcast to f32 and dequantized."""
+        """Rows ``idx`` of this rank's resident block, upcast to f32 and
+        dequantized."""
         x = self._resident_X.index_select(0, idx).to(torch.float32)
         if self._resident_scale is not None:
             x = x * self._resident_scale.index_select(0, idx)[:, None]
         return x
 
+    def _resident_owned(self, idx: torch.Tensor):
+        """On a row-sharded buffer: the positions of ``idx`` whose rows this
+        rank holds, and those rows' local indices. None on one device."""
+        shard = getattr(self, "_resident_shard", None)
+        if shard is None:
+            return None
+        pos = ((idx >= shard[0]) & (idx < shard[1])).nonzero()[:, 0]
+        return pos, idx.index_select(0, pos) - shard[0]
+
+    def _resident_apply(self, idx: torch.Tensor, head) -> torch.Tensor:
+        """``head`` ((m, D) f32 rows to (m, K) probabilities) over resident
+        rows ``idx``. From a row-sharded buffer each rank runs the head on
+        the rows it holds only, and one all-reduce of the zero-padded
+        (n, K) probabilities gives every rank every row (adding zeros is
+        exact): K/D of the bytes a feature exchange would move."""
+        owned = self._resident_owned(idx)
+        if owned is None:
+            return head(self._resident_rows(idx))
+        pos, local = owned
+        probs = head(self._resident_rows(local))
+        out = probs.new_zeros((idx.shape[0], probs.shape[1]))
+        out.index_copy_(0, pos, probs)
+        torch.distributed.all_reduce(out, group=self._mesh().group)
+        return out
+
+    def _softmax(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(mlp_logits(self._params["W"], self._params["b"], x),
+                             dim=1)
+
     def _resident_probs(self, indices: np.ndarray) -> torch.Tensor:
         idx = self._check_resident_indices(indices, require_fitted=True)
         with torch.no_grad(), full_f32():
-            return torch.softmax(mlp_logits(self._params["W"], self._params["b"],
-                                            self._resident_rows(idx)), dim=1)
+            return self._resident_apply(idx, self._softmax)
 
     def predict_proba_resident(self, indices: np.ndarray) -> np.ndarray:
         """predict_proba over rows of the resident buffer: only the (N, K)
@@ -965,16 +1122,26 @@ class MLPClassifier:
                 f"y_indices shape {y_idx.shape} != indices shape"
                 f" {np.shape(indices)}"
             )
-        probs = self._resident_probs(indices)
-        with torch.no_grad():
-            y = torch.from_numpy(y_idx).to(self.device)
+        idx = self._check_resident_indices(indices, require_fitted=True)
+        y = torch.from_numpy(y_idx).to(self.device)
+        # On a row-sharded buffer each rank counts the rows it holds and
+        # one all-reduce sums the two counts.
+        owned = self._resident_owned(idx)
+        if owned is not None:
+            y = y.index_select(0, owned[0])
+            idx = owned[1]
+        with torch.no_grad(), full_f32():
+            probs = self._softmax(self._resident_rows(idx))
             correct = (torch.argmax(probs, dim=1) == y).to(torch.float32).sum()
             valid = y >= 0
             safe = torch.where(valid, y, torch.zeros_like(y))
             t = probs.gather(1, safe[:, None])[:, 0] / probs.sum(dim=1)
             t = t.clamp(_SKLEARN_LOG_LOSS_EPS, 1.0 - _SKLEARN_LOG_LOSS_EPS)
             neg_log = torch.where(valid, -torch.log(t), torch.zeros_like(t))
-            return torch.stack([correct, neg_log.sum()]).cpu().numpy()
+            counts = torch.stack([correct, neg_log.sum()])
+            if owned is not None:
+                torch.distributed.all_reduce(counts, group=self._mesh().group)
+            return counts.cpu().numpy()
 
     def predict_proba_resident_head(
         self, head: dict, indices: np.ndarray
@@ -992,7 +1159,7 @@ class MLPClassifier:
         params = {k: [dev(t) for t in v] if isinstance(v, (list, tuple)) else dev(v)
                   for k, v in head.items()}
         with torch.no_grad(), full_f32():
-            probs = head_apply(params, self._resident_rows(idx))
+            probs = self._resident_apply(idx, lambda x: head_apply(params, x))
         return probs.cpu().numpy().astype(np.float64)
 
     # --- sklearn parameter protocol (lightweight) -------------------------
@@ -1014,6 +1181,7 @@ class MLPClassifier:
             "beta_2": self.beta_2,
             "epsilon": self.epsilon,
             "class_weight": self.class_weight,
+            "mesh": getattr(self, "mesh", None),
             "init": self.init,
             "device": self.device,
         }
@@ -1038,8 +1206,12 @@ class MLPClassifier:
         # model state: never serialized (set_resident_features again after
         # unpickling to resume a resident run).
         state = self.__dict__.copy()
-        for key in (*self._SCRATCH, "_adam", "_resident_X", "_resident_scale"):
+        for key in (*self._SCRATCH, "_adam", "_resident_X", "_resident_scale",
+                    "_resident_shard"):
             state.pop(key, None)
+        # The mesh holds live process groups: a pickle restores mesh-less
+        # (assign .mesh after unpickling to re-attach one).
+        state["mesh"] = None
         params = state.pop("_params", None)
         if params is not None:
             state["_params_state"] = {
@@ -1057,6 +1229,7 @@ class MLPClassifier:
         params_state = state.pop("_params_state", None)
         opt_state_state = state.pop("_opt_state_state", None)
         self.__dict__.update(state)
+        self.__dict__.setdefault("mesh", None)
         self.device = _resolve_device(self.device)
         if params_state is not None:
             self._set_state(params_state["W"], params_state["b"], opt_state_state)
@@ -1065,12 +1238,13 @@ class MLPClassifier:
         # Training updates the parameters and the Adam moments in place, so
         # a snapshot (the trainer's early-stopping copy) clones them on the
         # device; the resident buffer and its scale are shared, since a copy
-        # would double gigabytes of device memory. No captured step is
-        # carried: the copy captures its own on first use.
+        # would double gigabytes of device memory; the mesh is shared too.
+        # No captured step is carried: the copy captures its own on first
+        # use.
         clone = self.__class__.__new__(self.__class__)
         memo[id(self)] = clone
         for k, v in self.__dict__.items():
-            if k in ("_resident_X", "_resident_scale"):
+            if k in ("_resident_X", "_resident_scale", "mesh"):
                 clone.__dict__[k] = v
             elif k not in ("_params", "_adam", *self._SCRATCH):
                 clone.__dict__[k] = copy.deepcopy(v, memo)

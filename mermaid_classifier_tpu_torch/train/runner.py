@@ -20,8 +20,14 @@ feature cache in a temporary directory when
 directory when the run ends; a device-resident run reads the disk once and
 never packs.
 
-Not ported, raising where it is asked for: the data-parallel mesh
-(``settings.train_mesh_devices``).
+With ``settings.train_mesh_devices`` set, the trainer gets a pure
+data-parallel mesh over that many ranks (``parallel.mesh.make_mesh``, model
+dim 1) on the runner's device: one process per device, each running the
+same recipe (``torchrun --nproc-per-node N``). Every rank runs the whole
+recipe, since its collectives need every rank, but only rank 0 writes the
+tracking run, the registry version and the store mirror; the other ranks
+log into a throwaway tracker and return no version. The feature cache may
+be shared: each download lands by temp file and rename.
 """
 
 from __future__ import annotations
@@ -144,11 +150,6 @@ class TrainingRunner:
 
     def _make_trainer(self, batch_size: int, class_weight) -> MermaidTrainer:
         """Hook so tests can shrink the head architecture."""
-        if settings.train_mesh_devices is not None:
-            raise NotImplementedError(
-                f"train_mesh_devices={settings.train_mesh_devices}: data-parallel"
-                " head training over a device mesh is not ported"
-            )
         opts = self.training_options
         packed_dir = None
         # The packed cache speeds up epochs streamed from disk. A
@@ -169,7 +170,23 @@ class TrainingRunner:
             calibration_backend=opts.calibration_backend,
             calibration_method=opts.calibration_method,
             device=self.device,
+            mesh=self._make_training_mesh(),
         )
+
+    def _make_training_mesh(self):
+        """The trainer's mesh, built once per runner: None without
+        ``settings.train_mesh_devices``."""
+        if settings.train_mesh_devices is None:
+            return None
+        if getattr(self, "_mesh", None) is None:
+            import torch
+
+            from mermaid_classifier_tpu_torch.parallel.mesh import make_mesh
+
+            # Pure data parallelism for the head: batch over every device.
+            self._mesh = make_mesh(settings.train_mesh_devices, model_parallel=1,
+                                   device=torch.device(self.device).type)
+        return self._mesh
 
     def _on_epoch_end(self, metrics: dict) -> None:
         """Override for logging."""
@@ -291,6 +308,18 @@ class TrackingTrainingRunner(TrainingRunner):
     # -- run ---------------------------------------------------------------------
 
     def run(self, run_name: str | None = None) -> tuple[typing.Any, Path | None]:
+        mesh = self._make_training_mesh()
+        if mesh is None or mesh.rank == 0:
+            return self._tracked_run(run_name, self.tracker, sync=True)
+        # Another rank of the mesh: the same recipe and collectives, logged
+        # where nothing reads them.
+        with tempfile.TemporaryDirectory(prefix="rank_tracker_") as scratch:
+            return_msg, _ = self._tracked_run(run_name, LocalTracker(scratch),
+                                              sync=False)
+        return return_msg, None
+
+    def _tracked_run(self, run_name: str | None, tracker: LocalTracker,
+                     sync: bool) -> tuple[typing.Any, Path | None]:
         model_name = self._get_model_name()
         if run_name is None:
             run_name = f"{model_name}-{self.current_time_str()}"
@@ -304,7 +333,7 @@ class TrackingTrainingRunner(TrainingRunner):
         return_msg = None
         registered_version: Path | None = None
 
-        with self.tracker.start_run(experiment, run_name) as run:
+        with tracker.start_run(experiment, run_name) as run:
             self._run = run
             run.log_params(
                 {
@@ -354,7 +383,8 @@ class TrackingTrainingRunner(TrainingRunner):
                     run.log_dict(val_results.to_dict(), "valresult.json")
                     self._log_extra_annotations(run)
                     registered_version = self._eval_and_register(
-                        run, model_name, return_msg, clf_calibrated, val_results
+                        run, tracker, model_name, return_msg, clf_calibrated,
+                        val_results,
                     )
                 finally:
                     # Logged LAST (so the export-gate / artifact-eval /
@@ -379,7 +409,7 @@ class TrackingTrainingRunner(TrainingRunner):
         # Remote tracking: mirror the finished run (and the registry entry)
         # into the object store when a sync bucket is configured. Never
         # fatal: the local run is complete either way.
-        if settings.tracking_sync_bucket:
+        if sync and settings.tracking_sync_bucket:
             try:
                 from mermaid_classifier_tpu_torch.data.store import get_default_store
                 from mermaid_classifier_tpu_torch.tracking.store_sync import (
@@ -391,9 +421,7 @@ class TrackingTrainingRunner(TrainingRunner):
                 # Just this run + the registry: a whole-tracker sync would
                 # re-probe every historical object on every run.
                 sync_run_to_store(run, store, settings.tracking_sync_bucket)
-                sync_registry_to_store(
-                    self.tracker, store, settings.tracking_sync_bucket
-                )
+                sync_registry_to_store(tracker, store, settings.tracking_sync_bucket)
             except Exception:  # noqa: BLE001 - sync is best-effort
                 logger.warning(
                     "tracking sync to bucket %r failed",
@@ -403,7 +431,8 @@ class TrackingTrainingRunner(TrainingRunner):
         return return_msg, registered_version
 
     def _eval_and_register(
-        self, run: Run, model_name: str, return_msg, clf_calibrated, val_results
+        self, run: Run, tracker: LocalTracker, model_name: str, return_msg,
+        clf_calibrated, val_results,
     ) -> Path:
         """Eval-the-artifact: metrics run against the SHIPPED predictor,
         never the in-memory model; then the artifact is registered."""
@@ -457,9 +486,7 @@ class TrackingTrainingRunner(TrainingRunner):
 
             run.log_artifact(model_npz, "model/model.npz")
             run.log_artifact(model_json, "model/model.json")
-            return self.tracker.register_model(
-                model_name, [model_npz, model_json], run=run
-            )
+            return tracker.register_model(model_name, [model_npz, model_json], run=run)
 
     def _resident_val_proba(self, run, ctx, clf_calibrated, predictor, device):
         """The eval-the-artifact fast path: the val span already sits in the

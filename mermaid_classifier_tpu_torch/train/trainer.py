@@ -29,8 +29,13 @@ start of a call, into a packed feature cache under that directory
 batch after that is a row gather from it instead of a feature-file read;
 the batches are the same bytes.
 
-Left out: ``mesh``, the TPU host's threaded page pre-touch and the
-ahead-of-time program warming.
+With a ``mesh`` (``parallel.mesh``; every rank runs the same call on the
+same files) the classifier trains data-parallel over it, the resident
+buffer row-sharded (``MLPClassifier``'s mesh path); a checkpoint restores
+mesh-less and the trainer re-attaches its mesh.
+
+Left out: the TPU host's threaded page pre-touch and the ahead-of-time
+program warming.
 ``accuracy_score`` and ``log_loss`` are numpy functions with sklearn 1.9's
 semantics.
 """
@@ -234,6 +239,7 @@ class MermaidTrainer:
         calibration_method: str = "sigmoid",
         resident_load_workers: int = 8,
         device="cuda",
+        mesh=None,
     ):
         if early_stopping_patience is not None and early_stopping_patience < 1:
             raise ValueError(
@@ -279,6 +285,9 @@ class MermaidTrainer:
         # single-scalar NLL fit (TemperatureCalibratedClassifier).
         self.calibration_method = calibration_method
         self.device = _resolve_device(device)
+        # Optional parallel.mesh.Mesh: the classifier trains data-parallel
+        # over it (see MLPClassifier.mesh).
+        self.mesh = mesh
         # Populated by __call__.
         self._early_stop_info: dict[str, Any] | None = None
         # Stage budget of a resident __call__ (seconds and sizes).
@@ -392,6 +401,7 @@ class MermaidTrainer:
             learning_rate_init=PRODUCTION_LEARNING_RATE,
             class_weight=class_weight,
             random_state=PRODUCTION_RANDOM_STATE,
+            mesh=self.mesh,
             device=self.device,
         )
 
@@ -508,6 +518,7 @@ class MermaidTrainer:
         self._resident_buffer_scale = clf._resident_scale
         self._resident_buffer_dtype = clf._resident_dtype
         self._resident_buffer_n_rows = clf._resident_n_rows
+        self._resident_buffer_shard = clf._resident_shard
 
     def __call__(
         self,
@@ -561,6 +572,10 @@ class MermaidTrainer:
                 best_clf_snapshot = self._clf_from_state(
                     checkpoint["best_clf"]
                 )
+                # Checkpoints serialize mesh-less; re-attach this trainer's.
+                for restored in (clf, best_clf_snapshot):
+                    if restored is not None:
+                        restored.mesh = self.mesh
                 ref_accs = list(checkpoint["ref_accs"])
                 best_val_loss = checkpoint["best_val_loss"]
                 best_epoch_idx = checkpoint["best_epoch_idx"]
@@ -737,6 +752,7 @@ class MermaidTrainer:
             clf._resident_scale = self._resident_buffer_scale
             clf._resident_dtype = self._resident_buffer_dtype
             clf._resident_n_rows = self._resident_buffer_n_rows
+            clf._resident_shard = self._resident_buffer_shard
 
         t_calib = time.time()
         with _log_entry_and_exit("calibration"):
@@ -787,7 +803,10 @@ class MermaidTrainer:
 
         # The whole call succeeded: only now has the checkpoint served its
         # purpose (a preemption during calibration resumes from the final
-        # epoch, not epoch zero).
+        # epoch, not epoch zero). On a mesh every rank saves the same state;
+        # none clears it before every rank's last save has landed.
+        if self.mesh is not None and self.checkpoint_dir is not None:
+            torch.distributed.barrier(group=self.mesh.group)
         self._clear_checkpoint()
 
         return clf_calibrated, val_results, return_message

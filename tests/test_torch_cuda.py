@@ -1257,3 +1257,159 @@ def test_e2e_tiny_on_cuda(cuda, tmp_path):
     assert "[e2e] PASS in " in proc.stdout and "stage budget:" in proc.stdout
     assert (tmp_path / "tracking" / "_models" / "mermaid-mlp-example" / "v1"
             / "model.npz").is_file()
+
+
+# -- the parallel layer over NCCL at world size 1 ---------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda):
+    """A world-size-1 NCCL mesh on the card (its own in-process store), torn
+    down after the module's tests."""
+    import torch.distributed as dist
+
+    from mermaid_classifier_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cuda")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_nccl_mesh_at_world_size_one(nccl_mesh):
+    import torch.distributed as dist
+
+    assert dist.get_backend() == "nccl"
+    assert (nccl_mesh.shape, nccl_mesh.rank) == ((1, 1), 0)
+    assert nccl_mesh.device == torch.device("cuda", 0)
+    rows = torch.arange(6.0, device=nccl_mesh.device).view(3, 2)
+    assert torch.equal(nccl_mesh.all_gather_rows(rows), rows)
+
+
+def test_mesh_drives_the_card_its_group_was_bound_to(cuda, tmp_path):
+    """``initialize_distributed(local_device_ids=[0])`` binds the group to
+    cuda:0, and the mesh built on it drives cuda:0, not ``cuda:LOCAL_RANK``
+    (in a process of its own: the module's mesh holds this one's group)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    code = ("from mermaid_classifier_tpu_torch.parallel import mesh as m\n"
+            "m.initialize_distributed(local_device_ids=[0])\n"
+            "print(m.make_mesh(device='cuda').device)\n"
+            "m.dist.destroy_process_group()\n")
+    env = {**_port_env(repo), "LOCAL_RANK": "7"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().splitlines()[-1] == "cuda:0"
+
+
+def test_sharded_extraction_on_cuda_equals_single(nccl_mesh):
+    """The sharded folded trunk and the mesh extractor (its crop a kernel
+    launch per image) equal the single-process folded path bit for bit."""
+    from mermaid_classifier_tpu_torch.parallel.sharded_extract import (
+        make_sharded_feature_fn,
+    )
+
+    config = CONFIGS["narrow_36px"]
+    variables = _perturbed_variables(config, np.random.default_rng(3))
+    patches = torch.from_numpy(np.random.default_rng(4).random(
+        (16, 36, 36, 3), dtype=np.float32)).to(nccl_mesh.device)
+    sharded = make_sharded_feature_fn(nccl_mesh, variables, config)(patches)
+    weights = fm.to_device(fm.fold_backbone(variables, config), nccl_mesh.device)
+    with torch.inference_mode():
+        single = fm.apply_folded(weights, config, patches)
+    assert torch.equal(sharded, single)
+
+    opts = dict(device="cuda", backbone_impl="folded", backbone_batch=8)
+    meshed = build_extractor(variables, config, mesh=nccl_mesh, **opts)
+    plain = build_extractor(variables, config, **opts)
+    rng = np.random.default_rng(5)
+    image = rng.integers(0, 256, size=(90, 70, 3), dtype=np.uint8)
+    points = np.stack([rng.integers(0, 90, 16), rng.integers(0, 70, 16)], 1)
+    before = patch_crop.launches
+    got = meshed.extract_features(image, points)
+    assert patch_crop.launches - before == 1
+    np.testing.assert_array_equal(got, plain.extract_features(image, points))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_mesh_step_captured_on_cuda_equals_single_device(nccl_mesh, dtype):
+    """The mesh step, captured with its NCCL all-reduce inside the graph,
+    equals the captured single-device step bit for bit at world size 1
+    (resident and streamed), and the eager mesh step."""
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import MLPClassifier
+
+    rng = np.random.default_rng(6)
+    X = rng.standard_normal((301, 64)).astype(np.float32)
+    y = np.asarray([f"c{i}" for i in rng.integers(0, 5, len(X))])
+    classes = sorted(set(y.tolist()))
+    idx = np.arange(len(X))
+    runs = {}
+    for name, mesh, capture in (("single", None, True), ("mesh", nccl_mesh, True),
+                                ("eager", nccl_mesh, False)):
+        clf = MLPClassifier((32,), random_state=0, batch_size=64, device="cuda",
+                            mesh=mesh)
+        clf.capture_step = capture
+        clf.set_resident_features(X, dtype=dtype)
+        clf.partial_fit_resident(idx, y, classes=classes)
+        clf.partial_fit(X[:150], y[:150])
+        runs[name] = (clf.loss_curve_, clf.coefs_,
+                      clf.predict_proba_resident(idx[:40]))
+    for name in ("mesh", "eager"):
+        assert runs[name][0] == runs["single"][0], name
+        for a, b in zip(runs[name][1], runs["single"][1]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(runs[name][2], runs["single"][2])
+
+
+def test_sharded_head_trainer_on_cuda_equals_classifier(nccl_mesh):
+    """ShardedHeadTrainer at (1, 1) and one MLPClassifier step from the same
+    numpy weights."""
+    from mermaid_classifier_tpu_torch.parallel.sharded_train import (
+        ShardedHeadTrainer,
+    )
+    from mermaid_classifier_tpu_torch.train.mlp_classifier import (
+        classifier_from_arrays,
+    )
+
+    rng = np.random.default_rng(8)
+    sizes = (64, 32, 16, 5)
+    weights = [rng.uniform(-0.3, 0.3, (i, o)).astype(np.float32)
+               for i, o in zip(sizes[:-1], sizes[1:])]
+    biases = [np.zeros(o, np.float32) for o in sizes[1:]]
+    x = rng.standard_normal((48, 64)).astype(np.float32)
+    y = rng.integers(0, 5, 48)
+    trainer = ShardedHeadTrainer(nccl_mesh, sizes, learning_rate=1e-3, alpha=1e-4)
+    params = trainer.shard_params({"W": weights, "b": biases})
+    params, _, loss = trainer.train_step(
+        params, trainer.init_opt_state(params),
+        *trainer.place_batch(x, y, np.ones(48, np.float32)), 48.0)
+    clf = classifier_from_arrays(weights, biases, classes=list(range(5)),
+                                 learning_rate_init=1e-3, batch_size=48,
+                                 shuffle=False, device="cuda")
+    clf.partial_fit(x, y)
+    assert loss == pytest.approx(clf.loss_curve_[-1], rel=1e-5)
+    for got, want in zip(trainer.unshard_params(params)["W"], clf.coefs_):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_preflight_on_cuda_mesh_allocates_nothing(nccl_mesh):
+    from mermaid_classifier_tpu_torch.parallel.preflight import (
+        production_geometry_report,
+    )
+
+    import gc
+
+    # Earlier tests' garbage may be freed during the report: read the peak,
+    # which any allocation by the report would raise.
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    report = production_geometry_report(nccl_mesh)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() <= before
+    assert report["resident_epoch"]["rows_padded"] == 449_099
+    assert report["resident_epoch"]["buffer_gb_per_device"] == 1.84

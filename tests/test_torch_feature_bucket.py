@@ -486,9 +486,12 @@ class TestCLI:
     def test_default_device_is_cuda(self):
         from mermaid_classifier_tpu_torch.scripts import build_feature_bucket as cli
 
-        args = cli.build_parser().parse_args(
-            ["--source-ids", "1", "--source-bucket", "a", "--target-bucket", "b"])
-        assert (args.device, args.backbone_impl) == ("cuda", "fused")
+        argv = ["--source-ids", "1", "--source-bucket", "a", "--target-bucket", "b"]
+        args = cli.build_parser().parse_args(argv)
+        assert (args.device, cli.backbone_impl_for(args)) == ("cuda", "fused")
+        # A mesh defaults to the sharded trunk, "folded", as the JAX CLI does.
+        meshed = cli.build_parser().parse_args(argv + ["--mesh-devices", "2"])
+        assert cli.backbone_impl_for(meshed) == "folded"
 
 
 def _bundle(path: Path):

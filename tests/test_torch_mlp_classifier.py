@@ -264,9 +264,8 @@ def test_get_set_params_match_jax():
     jp = JMLP(hidden_layer_sizes=(5,), alpha=0.5).get_params()
     tclf = TMLP(hidden_layer_sizes=(5,), alpha=0.5, device="cpu")
     tp = tclf.get_params()
-    assert set(tp) == (set(jp) - {"mesh"}) | {"device"}
-    assert {k: tp[k] for k in jp if k != "mesh"} == {k: v for k, v in jp.items()
-                                                     if k != "mesh"}
+    assert set(tp) == set(jp) | {"device"}
+    assert {k: tp[k] for k in jp} == jp
     assert tclf.set_params(alpha=0.1).alpha == 0.1
 
 

@@ -45,7 +45,7 @@ def test_port_imports_no_jax_pandas_or_pil():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 99
+    assert int(n_modules) >= 106
     assert bad.strip() == "[]", bad
 
 
@@ -132,3 +132,34 @@ def test_chip_smoke_fails_alone(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+PARALLEL_MODULES = (
+    "mermaid_classifier_tpu_torch.parallel",
+    "mermaid_classifier_tpu_torch.parallel.mesh",
+    "mermaid_classifier_tpu_torch.parallel.sharded_extract",
+    "mermaid_classifier_tpu_torch.parallel.sharded_serve",
+    "mermaid_classifier_tpu_torch.parallel.sharded_train",
+    "mermaid_classifier_tpu_torch.parallel.preflight",
+    "mermaid_classifier_tpu_torch.scripts.dryrun_multihost",
+)
+
+
+def test_parallel_layer_modules_in_the_walk():
+    """The parallel layer and the port's multi-process dryrun are walked
+    (and so import-checked) above, and importing them starts no process
+    group."""
+    code = (
+        "import importlib, pkgutil, mermaid_classifier_tpu_torch as pkg\n"
+        "import torch.distributed as dist\n"
+        f"for name in {PARALLEL_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "names = {m.name for m in pkgutil.walk_packages(pkg.__path__,"
+        " pkg.__name__ + '.')}\n"
+        f"print(sorted(set({PARALLEL_MODULES!r}) - names), dist.is_initialized())\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[] False"

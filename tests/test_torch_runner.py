@@ -41,6 +41,7 @@ from mermaid_classifier_tpu_torch.common import taxonomy as ttax
 from mermaid_classifier_tpu_torch.config.options import DatasetOptions as TDOpts
 from mermaid_classifier_tpu_torch.config.options import TrackingOptions as TKOpts
 from mermaid_classifier_tpu_torch.config.options import TrainingOptions as TTOpts
+from mermaid_classifier_tpu_torch.config import settings as tset
 from mermaid_classifier_tpu_torch.config.settings import override_settings
 from mermaid_classifier_tpu_torch.data.subsample import SubsampleOptions as TSub
 from mermaid_classifier_tpu_torch.inference import load_predictor as tload
@@ -322,14 +323,57 @@ def test_registry_versions_and_models_spec(env):
         assert ann.predictor.classes_ == tload(v2, device="cpu").classes_
 
 
+def test_mesh_runner_matches_single_device(env):
+    """``train_mesh_devices=2``: two gloo ranks, one process each as
+    torchrun starts them, run the resident recipe data-parallel (the buffer
+    row-sharded) on one feature cache and one tracking root. Only rank 0
+    writes: the root holds one run and one registered version, and the
+    other rank returns no version. Both ranks train to the same result, and
+    rank 0's run to the single-device run's: ref accuracies and accuracy
+    equal, val scores and the registered artifact's probabilities within
+    atol 1e-4 (the bounds this file holds the port to JAX with)."""
+    import time
+
+    from tests.test_torch_parallel_worker import collect, start_ranks
+
+    _, tstore, manifest_path, tmp_path = env
+    _, smsg, sreg = run_port(env, True, tmp_path / "tsingle")
+    strack = _only_run(TTracker(tmp_path / "tsingle"))
+    probe = np.random.default_rng(7).normal(size=(64, 8)).astype(np.float32)
+    run_dir = tmp_path / "ranks"
+    run_dir.mkdir()
+    inputs = {
+        "options": _options(True, manifest_path, TSub, TW, TDOpts, TTOpts, TKOpts),
+        "settings": {k: getattr(tset.settings, k) for k in (
+            "coralnet_train_data_bucket", "mermaid_train_data_bucket",
+            "mermaid_annotations_parquet_pattern", "batch_size")},
+        "store_root": tstore.root, "run_root": run_dir, "probe": probe,
+    }
+    ranks = collect(start_ranks(2, run_dir, inputs, ["runner_mesh"]), run_dir,
+                    time.monotonic() + 150)
+    for res in ranks:
+        assert "error" not in res["runner_mesh"], res["runner_mesh"]["error"]
+    res, other = ranks[0]["runner_mesh"], ranks[1]["runner_mesh"]
+    assert (bool(res["registered"]), bool(other["registered"])) == (True, False)
+    assert list(other["ref_accs"]) == list(res["ref_accs"])
+    assert float(other["acc"]) == float(res["acc"])
+    tracker = TTracker(run_dir / "track")
+    assert tracker.latest_model_version("reef-mlp").name == "v1"
+    mrun = _only_run(tracker)
+    assert list(res["ref_accs"]) == smsg.ref_accs and float(res["acc"]) == smsg.acc
+    mval = json.loads(mrun.artifact("valresult.json").read_text())
+    sval = json.loads(strack.artifact("valresult.json").read_text())
+    assert (mval["gt"], mval["est"]) == (sval["gt"], sval["est"])
+    np.testing.assert_allclose(mval["scores"], sval["scores"], atol=1e-4)
+    np.testing.assert_allclose(
+        res["proba"], tload(sreg, device="cpu").predict_proba(probe), atol=1e-4)
+
+
 def test_unported_settings_raise(env):
-    """The data-parallel mesh is still not ported and raises. The store
-    mirror is ported now: with ``tracking_sync_bucket`` set, the run trains
-    and mirrors itself and the registry into the default store, key for key
-    and byte for byte, where it used to raise."""
-    with override_settings(train_mesh_devices=2):
-        with pytest.raises(NotImplementedError, match="device mesh is not ported"):
-            run_port(env, False, env[3] / "t1")
+    """The store mirror is ported: with ``tracking_sync_bucket`` set, the
+    run trains and mirrors itself and the registry into the default store,
+    key for key and byte for byte, where it used to raise. (The mesh, which
+    raised here too, is ported: ``test_mesh_runner_matches_single_device``.)"""
     from mermaid_classifier_tpu_torch.data.store import LocalFSObjectStore
 
     sync_root = env[3] / "sync_store"
