@@ -7,9 +7,10 @@ packed feature cache), the composed quality check, its training recipe
 ``models:/`` serve, programmatically and through the ``classifier_train``
 YAML CLI), its full-trunk A/B harness, the operator's lifecycle around a
 training run (CoralNet manifest, generated config, S3 store, tracking sync,
-report, release, ``store://`` serve) and its job layer (two extraction
-workers sharing the card, a relaunch, the one-command E2E drive) on one
-CUDA card and check them.
+report, release, ``store://`` serve), its job layer (two extraction
+workers sharing the card, a relaunch, the one-command E2E drive), its
+at-scale drives (the kill-and-resume bulk build, the C2 recipe) and its
+parallel layer on one CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin), ``g++``
@@ -241,7 +242,21 @@ Phases, one output line each:
    patch-features/s from the progress log (first image to last, and from
    submit), their sum beside the bucket phase's single-process rate, and
    the E2E's ``stage budget:``.
-17. parallel — the parallel layer (last), in this process at world size 1
+17. drives — the port's at-scale drives at full width and reduced depth, each
+   a subprocess as its user runs it: ``feature_bucket_drive`` over 24 JPEGs
+   of 1536x2048 / 1440x1920 / 1152x1536 with 200 points each over 4 sources
+   (bf16, the fused trunk, the kernel library built once beforehand), a
+   clean build, a build SIGKILLed at 40% and its resume: ``ok``, the kill
+   mid-run, featsB byte-identical to featsA, no rewrite of a file finished
+   before the kill, no failure, no ``.part`` file, the library unchanged by
+   the three build processes, and each process's logged launches one crop
+   per image it wrote and 11 fused per 128-patch chunk plus 11 for its
+   gate; then ``full_recipe_drive`` at 60,000 pool rows x 4096, 80 classes,
+   100 points per image, 20 sources, 5 epochs + patience 3, resident int8:
+   export parity <= 1e-6 and a finite metric row. The two drives run at
+   once. Times (each read with the other drive running): each drive's
+   wall, stages, the builds' start and steady rates, the resident budget.
+18. parallel — the parallel layer (last), in this process at world size 1
    over NCCL on ``cuda:0`` (``make_mesh(device="cuda")``; NCCL refuses two
    ranks on one card): the mesh extractor (B0 224, 4096-d, ``folded``,
    batch 128, f32 and bf16, 256 points on a 1536x2048 image: one crop
@@ -1382,7 +1397,7 @@ def write_recipe_tables(tmp: Path, mermaid: dict, manifest: dict):
     return paths
 
 
-def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
+def phase_recipe(extractor, tmp: Path, smi: str):
     """The training recipe through its programmatic entry point,
     ``TrackingTrainingRunner(...).run()``, at the production head's width
     (4096 -> (500, 300, 100) -> 80, mini-batch 200, lr 1e-4) on a seeded
@@ -1462,7 +1477,7 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
             tracking_options=TrackingOptions(experiment_name="recipe",
                                              model_name=RECIPE_MODEL),
             tracker=tracker,
-            device=device,
+            device="cuda",
         )
         t1 = time.perf_counter()
         msg, registered = runner.run()
@@ -1497,11 +1512,11 @@ def phase_recipe(extractor, tmp: Path, smi: str, device: str = "cuda"):
         # The registered predictor over the val rows on the card: the rows
         # the trainer evaluated (its bf16 resident rows, one gather), and
         # the f32 rows on disk.
-        predictor = load_predictor(registered, device=device)
+        predictor = load_predictor(registered, device="cuda")
         classes_arr = np.asarray(predictor.classes_)
         res = runner._trainer.resident_artifact_val_proba(
             runner._clf_calibrated.estimator, ds.labels.val,
-            predictor.head_params.as_tensors(device))
+            predictor.head_params.as_tensors("cuda"))
         proba_res, gt = res
         acc_res = float(np.mean(classes_arr[proba_res.argmax(1)] == np.asarray(gt)))
         x_val, y_val = ds.labels.val.load_all()
@@ -2790,8 +2805,7 @@ def log_seconds(log: str, start: str, end: str) -> float:
     return (stamps[end] - stamps[start]).total_seconds()
 
 
-def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: str,
-                    device: str = "cuda"):
+def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: str):
     """What a MERMAID operator runs around a training run, through the port's
     CLIs as subprocesses, on the fake S3 endpoint (tests/data/fake_s3_server,
     in this process): the CoralNet export -> ``build_coralnet_manifest`` ->
@@ -2940,10 +2954,9 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
             TAXONOMY_FIXTURE_ENV: str(fixture),
             "FEATURE_CACHE_DIR": str(base / "feature_cache"),
             "TRACKING_DIR": str(tracking_a)})
-        extra = ["--device", "cpu", "--allow-unpinned-torch"] if device == "cpu" else []
         proc, walls["classifier_train"] = cli(
             "classifier_train", "--config-dir", config_dir, "--run-name", "lifecycle",
-            *extra, timeout=900)
+            timeout=900)
         train_log = proc.stdout + proc.stderr
         if "tracking sync to bucket" in train_log:
             print(train_log[-6000:], file=sys.stderr)
@@ -3001,8 +3014,7 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
 
         # 5. The immutable release.
         release = ["--artifact", f"models:/{LIFECYCLE_MODEL}", "--bucket", "releases",
-                   "--tracker-root", tracking_a, *(["--device", "cpu"] if device == "cpu"
-                                                   else [])]
+                   "--tracker-root", tracking_a]
         _, walls["release_artifact v1"] = cli("release_artifact", "--version", "v1",
                                               *release)
         v1 = remote("releases")
@@ -3037,14 +3049,13 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
             t = time.perf_counter()
             rc = annotate_image.main(["--image", str(image_path), "--points", str(csv_path),
                                       "--classifier", spec, "--output-dir", str(out),
-                                      "--backbone-weights", str(bundle), "--device", device])
-            if device != "cpu":
-                torch.cuda.synchronize()
+                                      "--backbone-weights", str(bundle), "--device", "cuda"])
+            torch.cuda.synchronize()
             walls[f"annotate_image {spec.split(':')[0]}:"] = time.perf_counter() - t
             launches = (patch_crop.launches, fused_mbconv.launches)
             if rc != 0:
                 fail(f"lifecycle: annotate_image {spec} returned {rc}")
-            if device != "cpu" and launches != (1, 11):
+            if launches != (1, 11):
                 fail(f"lifecycle: annotate_image {spec} launched (crop, fused)"
                      f" {launches}, want (1, 11)")
             with (out / "predictions.csv").open() as fh:
@@ -3077,7 +3088,7 @@ def phase_lifecycle(variables, config, extractor, recipe: dict, tmp: Path, smi: 
             now = time.perf_counter()
             total_ms.append((now - t) * 1e3)
             run_ms.append((now - t_run) * 1e3)
-            if device != "cpu" and launches != (1, 11):
+            if launches != (1, 11):
                 fail(f"lifecycle: the store:// request launched {launches}, want (1, 11)")
         diff = float(np.abs(ann.proba - ann_m.proba).max())
         if not diff <= 2e-6:
@@ -3615,6 +3626,127 @@ def phase_jobs(bucket: dict, tmp: Path, smi: str):
         f" {time.perf_counter() - t0:.1f} s")
 
 
+DRIVE_BUCKET = ("--images", "24", "--points", "200", "--sources", "4", "--kill-frac",
+                "0.4", "--compute-dtype", "bfloat16")
+# 60,000 pool rows: below about 60,000 at seed 0 the rarest class has too few
+# rows for one to land in the ref split, and the recipe (the JAX package's
+# as well) refuses a training label the ref split lacks.
+DRIVE_RECIPE = ("--pool-rows", "60000", "--classes", "80", "--dim", "4096",
+                "--points-per-image", "100", "--sources", "20", "--epochs", "5",
+                "--patience", "3", "--resident-dtype", "int8")
+
+
+def run_drives(base: Path, drives) -> dict:
+    """The port's at-scale drives as their users run them (``-m``
+    subprocesses on the card), all started at once: {name: record} with each
+    drive's wall seconds, or the phase fails. Every drive runs in a session
+    of its own, so a failure stops it and the processes it started."""
+    import signal
+
+    procs = {}
+    try:
+        for name, module, args in drives:
+            log = (base / f"{name}.log").open("w")
+            procs[name] = (module, log, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", f"mermaid_classifier_tpu_torch.scripts.{module}",
+                 *args, "--workdir", str(base / name), "--output-json",
+                 str(base / f"{name}.json")],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT, start_new_session=True))
+        walls, deadline = {}, time.perf_counter() + 600
+        while len(walls) < len(procs) and time.perf_counter() < deadline \
+                and all(procs[name][3].returncode == 0 for name in walls):
+            for name, (_, _, t, proc) in procs.items():
+                if name not in walls and proc.poll() is not None:
+                    walls[name] = time.perf_counter() - t
+            time.sleep(0.2)
+        # A drive that failed first, else one still running at the deadline.
+        for name, (module, log, _, proc) in sorted(
+                procs.items(), key=lambda item: item[1][3].returncode is None):
+            if proc.returncode != 0 or not (base / f"{name}.json").is_file():
+                log.close()
+                print((base / f"{name}.log").read_text()[-8000:], file=sys.stderr)
+                fail(f"drives: {module} exited {proc.returncode}"
+                     + (" (still running after 600 s)" if proc.returncode is None else ""))
+        return {name: {**json.loads((base / f"{name}.json").read_text()),
+                       "wall_seconds": walls[name]} for name in procs}
+    finally:
+        for _, log, _, proc in procs.values():
+            log.close()
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def phase_drives(results, tmp: Path, smi: str):
+    """The port's at-scale drives at full width and reduced depth: the
+    kill-and-resume bulk build (24 production-sized JPEGs x 200 points over 4
+    sources, bf16 on the fused trunk, SIGKILL at 40%) and the C2 recipe drive
+    (60,000 pool rows x 4096, 80 classes, 5 epochs + patience 3, resident
+    int8), each a subprocess as its user runs it, the two at once."""
+    import math
+
+    base = tmp / "drives"
+    base.mkdir()
+
+    # The two drives share the card at once (most of each is its processes'
+    # starts); their times are read with the other one running.
+    records = run_drives(base, (("bucket", "feature_bucket_drive", DRIVE_BUCKET),
+                                ("recipe", "full_recipe_drive", DRIVE_RECIPE)))
+    fb, fr = records["bucket"], records["recipe"]
+
+    # 1. The bulk build: the kill landed mid-run, the resume rewrote nothing
+    # and matches the clean build byte for byte, and each build process
+    # launched one crop per image it wrote and 11 fused blocks per 128-patch
+    # chunk plus 11 for its numerics gate, as its own log gives them.
+    kr = fb["kill_resume"]
+    if not (fb["ok"] and kr["killed_mid_run"] and kr["rewrites_after_resume"] == 0
+            and kr["identical_to_uninterrupted"] and kr["stray_part_files"] == 0
+            and kr["failures_logged"] == 0 and kr["featsB_complete"]):
+        fail(f"drives: the bucket drive's proof failed: ok {fb['ok']}, {kr}")
+    if not (fb["kernel_library"] or {}).get("unchanged_by_the_builds"):
+        fail(f"drives: a build process rebuilt the kernels: {fb['kernel_library']}")
+    chunks = -(-200 // 128)
+    launches = fb["kernel_launches"]
+    want_images = {"uninterrupted": 24, "resume": kr["resumed_images"]}
+    for name, got in launches.items():
+        n = got["images_written"]
+        if n == 0 or want_images.get(name, n) != n \
+                or (got["crop"], got["fused_mbconv"]) != (n, 11 * chunks * n + 11):
+            fail(f"drives: build process {name} wrote {n} images and logged (crop,"
+                 f" fused) {(got['crop'], got['fused_mbconv'])}, want"
+                 f" {(n, 11 * chunks * n + 11)}")
+    results["patch_crop"]["launches"] += sum(g["crop"] for g in launches.values())
+    results["fused_mbconv"]["launches"] += sum(g["fused_mbconv"] for g in launches.values())
+    say(f"drives: feature_bucket_drive ok: SIGKILL at {kr['files_at_kill']}/24 images,"
+        f" {kr['done_before_resume']} done before the resume, featsB byte-identical to"
+        f" featsA, rewrites {kr['rewrites_after_resume']}, stray .part"
+        f" {kr['stray_part_files']} (before the resume {kr['part_files_before_resume']});"
+        f" launches (images, crop, fused) per process "
+        + ", ".join(f"{k} {(g['images_written'], g['crop'], g['fused_mbconv'])}"
+                    for k, g in launches.items()))
+    say(f"time drives on {smi} (both drives at once): bucket drive"
+        f" {fb['wall_seconds']:.1f} s, stages"
+        f" {fb['stage_seconds']}; clean build start {fb['uninterrupted_stats']}"
+        f" resume {fb['resume_stats']}")
+
+    # 2. The C2 recipe drive at reduced depth.
+    parity = fr["export_parity_max_abs_diff"]
+    row = {k: fr[k] for k in ("accuracy", "balanced_accuracy", "log_loss", "f1_macro",
+                              "mcc")}
+    if parity is None or not parity <= 1e-6:
+        fail(f"drives: the recipe drive's export parity {parity} (want <= 1e-6)")
+    if not all(v is not None and math.isfinite(v) for v in row.values()) \
+            or not fr["subsample_realized"] or fr["device"]["type"] != "cuda":
+        fail(f"drives: the recipe drive's record {row}, subsample"
+             f" {fr['subsample_realized']}, device {fr['device']}")
+    say(f"drives: full_recipe_drive ok: subsample {fr['subsample_realized']:.0f},"
+        f" splits {fr['splits']}, epochs {fr['final_epoch']:.0f} (best"
+        f" {fr['best_val_epoch']:.0f}), parity {parity:.3e}, {row}")
+    say(f"time drives on {smi} (both drives at once): recipe drive"
+        f" {fr['wall_seconds']:.1f} s, stages"
+        f" {fr['stage_seconds']}; resident {fr['train_stage_breakdown']}")
+
+
 def phase_parallel(variables, config, results, tmp: Path, smi: str):
     import dataclasses
 
@@ -3873,6 +4005,7 @@ def main() -> None:
             timed("lifecycle", phase_lifecycle, variables, config, extractor, recipe,
                   Path(tmp), smi)
         timed("jobs", phase_jobs, bucket, Path(tmp), smi)
+        timed("drives", phase_drives, results, Path(tmp), smi)
         timed("parallel", phase_parallel, variables, config, results, Path(tmp), smi)
     say(f"phases: {time.perf_counter() - t_start:.1f} s in all")
 

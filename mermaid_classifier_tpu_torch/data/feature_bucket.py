@@ -53,6 +53,7 @@ import numpy as np
 
 from mermaid_classifier_tpu_torch.data.features_io import write_feature_file
 from mermaid_classifier_tpu_torch.data.store import ObjectStore
+from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
 from mermaid_classifier_tpu_torch.serve.image_sources import decode_image_bytes
 
 logger = getLogger(__name__)
@@ -313,6 +314,13 @@ class FeatureBucketBuilder:
         annotations = self.read_annotations(source_id)
         if self.write_outputs:
             self.upload_annotations_csv(source_id)
+            # A run killed mid-write left its temp file beside the features;
+            # the image itself is not listed, so it is extracted again.
+            discarded = self.store.discard_partial_writes(
+                self.target_bucket, f"s{source_id}/features/")
+            if discarded:
+                logger.warning("source %s: discarded %d partial writes of a"
+                               " killed run", source_id, discarded)
 
         existing = (
             self.list_existing_feature_image_ids(source_id)
@@ -367,7 +375,7 @@ class FeatureBucketBuilder:
             )
 
         def finalize(pending) -> None:
-            image_id, rowcols, readback = pending
+            image_id, rowcols, readback, launched = pending
             try:
                 features = readback.wait()
                 n_points = (
@@ -393,6 +401,10 @@ class FeatureBucketBuilder:
                     logger.exception(
                         "progress-log write failed for image %s", image_id
                     )
+            # The process's kernel launches as of this image's dispatch: a
+            # process killed mid-run still leaves its count per written image.
+            logger.info("image %s written (%d points); kernel launches so far:"
+                        " crop %d, fused_mbconv %d", image_id, n_points, *launched)
 
         done_queue: queue.Queue = queue.Queue(maxsize=2)
 
@@ -439,7 +451,8 @@ class FeatureBucketBuilder:
                     except Exception as exc:  # noqa: BLE001 - per-image isolation
                         record_failure(image_id, exc)
                         continue
-                    done_queue.put((image_id, rowcols, readback))
+                    launched = (patch_crop.launches, fused_mbconv.launches)
+                    done_queue.put((image_id, rowcols, readback, launched))
         finally:
             done_queue.put(None)
             writer_thread.join()

@@ -46,6 +46,11 @@ class ObjectStore:
     def delete(self, bucket: str, key: str) -> None:
         raise NotImplementedError
 
+    def discard_partial_writes(self, bucket: str, prefix: str = "") -> int:
+        """Remove what writes killed mid-way left under ``prefix``; returns
+        how many. A store whose puts leave nothing behind has none."""
+        return 0
+
     def download(self, bucket: str, key: str, local_path: str | Path) -> None:
         data = self.get_bytes(bucket, key)
         local_path = Path(local_path)
@@ -99,6 +104,18 @@ class LocalFSObjectStore(ObjectStore):
             if os.path.exists(tmp):
                 os.unlink(tmp)
             raise
+
+    def discard_partial_writes(self, bucket: str, prefix: str = "") -> int:
+        """Unlink the ``.part`` temp files under ``prefix`` that a writer
+        killed between its temp write and its rename left behind (a SIGKILL
+        runs no cleanup). Only for a prefix no other process is writing."""
+        root = self._path(bucket, prefix) if prefix else self.root / bucket
+        if not root.is_dir():
+            return 0
+        stale = [p for p in root.rglob("*.part") if p.is_file()]
+        for path in stale:
+            path.unlink(missing_ok=True)
+        return len(stale)
 
     def list_keys(self, bucket: str, prefix: str = "") -> Iterator[str]:
         bucket_root = self.root / bucket

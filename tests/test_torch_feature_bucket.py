@@ -232,6 +232,34 @@ def test_resume_skips_existing(tmp_path, port_extractor):
         assert store._path(DST, key).stat().st_mtime_ns == mtime
 
 
+def test_resume_discards_a_killed_write(tmp_path, port_extractor, caplog):
+    """A writer killed between its temp write and its rename leaves a
+    ``.part`` file beside the features (a SIGKILL runs no cleanup); the
+    resume removes it, extracts the unfinished image again and leaves every
+    finished file alone. Another source's directory is not swept."""
+    store = populate(TStore(tmp_path / "store"))
+    port_builder(store, tmp_path, port_extractor).process_source("1")
+    store.delete(DST, tfb.feature_key("1", "11"))
+    features = store._path(DST, "s1/features/x")
+    (features.parent / "tmpkilled.part").write_bytes(b"half a file")
+    elsewhere = store._path(DST, "s2/features/tmpother.part")
+    elsewhere.parent.mkdir(parents=True)
+    elsewhere.write_bytes(b"another source's write")
+    before = {k: store._path(DST, k).stat().st_mtime_ns for k in store.list_keys(DST)}
+    with caplog.at_level("INFO", logger=tfb.logger.name):
+        result = port_builder(store, tmp_path, port_extractor).process_source("1")
+    assert (result.images_skipped, result.images_done) == (3, 1)
+    assert list(features.parent.glob("*.part")) == []
+    assert elsewhere.is_file()
+    for key, mtime in before.items():
+        assert store._path(DST, key).stat().st_mtime_ns == mtime
+    assert "discarded 1 partial writes" in caplog.text
+    # One launch line per written image: on the CPU the kernels' plain
+    # versions run, so the counts stay 0.
+    assert "image 11 written (9 points); kernel launches so far: crop 0," \
+           " fused_mbconv 0" in caplog.text
+
+
 def test_no_skip_existing_redoes_everything(tmp_path, port_extractor):
     store = populate(TStore(tmp_path / "store"))
     port_builder(store, tmp_path, port_extractor).process_source("1")
