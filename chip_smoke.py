@@ -9,8 +9,8 @@ YAML CLI), its full-trunk A/B harness, the operator's lifecycle around a
 training run (CoralNet manifest, generated config, S3 store, tracking sync,
 report, release, ``store://`` serve), its job layer (two extraction
 workers sharing the card, a relaunch, the one-command E2E drive), its
-at-scale drives (the kill-and-resume bulk build, the C2 recipe) and its
-parallel layer on one CUDA card and check them.
+at-scale drives (the kill-and-resume bulk build, the C2 recipe), its bench
+and its parallel layer on one CUDA card and check them.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc`` (PATH or /usr/local/cuda/bin), ``g++``
@@ -256,7 +256,18 @@ Phases, one output line each:
    export parity <= 1e-6 and a finite metric row. The two drives run at
    once. Times (each read with the other drive running): each drive's
    wall, stages, the builds' start and steady rates, the resident budget.
-18. parallel — the parallel layer (last), in this process at world size 1
+18. bench  — the port's bench (``python -m mermaid_classifier_tpu_torch.bench``)
+   as a subprocess on the card at a small size: 512 points per device-loop
+   step, 3 steps, 1 repeat, the bucket leg over 4 JPEGs of 64 points, 2,000
+   training rows for 1 timed epoch, a 1,024-row serve batch, no quality and
+   no recipe leg (the quality and drives phases run those): exit 0, its
+   last line parses and names this card, the bf16 ``fused`` gate >= 0.999,
+   1 crop and 44 fused launches per device-loop step, the bucket leg's
+   launches one crop and 11 fused per image per run (the discarded run
+   included) plus the warm-up image's, no failed leg. Times: the bench's
+   own readings (device loop, roofline, bucket, stage budget, annotate,
+   train, serve) and the phase's wall.
+19. parallel — the parallel layer (last), in this process at world size 1
    over NCCL on ``cuda:0`` (``make_mesh(device="cuda")``; NCCL refuses two
    ranks on one card): the mesh extractor (B0 224, 4096-d, ``folded``,
    batch 128, f32 and bf16, 256 points on a 1536x2048 image: one crop
@@ -3747,6 +3758,60 @@ def phase_drives(results, tmp: Path, smi: str):
         f" {fr['stage_seconds']}; resident {fr['train_stage_breakdown']}")
 
 
+BENCH_ARGS = ("--points", "512", "--iters", "3", "--repeats", "1", "--bucket-images", "4",
+              "--bucket-points", "64", "--train-rows", "2000", "--train-epochs", "1",
+              "--serve-batch", "1024", "--no-quality", "--no-full-recipe")
+
+
+def phase_bench(results, tmp: Path, smi: str):
+    """The port's bench as its user runs it (``python -m
+    mermaid_classifier_tpu_torch.bench``, a subprocess on the card) at a
+    small size, every leg but quality and the recipe (the quality and drives
+    phases run those): exit 0, its last line parses, it names this card,
+    the bf16 ``fused`` gate >= 0.999, 1 crop and 44 fused launches per
+    device-loop step (512 points = 4 chunks of 128), and the bucket leg's
+    launches one crop and 11 fused per image per run (the discarded run
+    included) plus one image's for its warm-up."""
+    t0 = time.perf_counter()
+    out = tmp / "bench.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "mermaid_classifier_tpu_torch.bench", "--device", "cuda",
+         *BENCH_ARGS, "--output-json", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        print(proc.stderr[-8000:], file=sys.stderr)
+        fail(f"bench: exit {proc.returncode}")
+    head = json.loads(proc.stdout.strip().splitlines()[-1])
+    payload = json.loads(out.read_text())
+    card = smi.rsplit(",", 1)[0].strip()
+    if head["device"].get("name") != card or payload["failed_legs"]:
+        fail(f"bench: device {head['device']} (want {card!r}), failed legs"
+             f" {payload['failed_legs']}")
+    gate = head["numerics_gate_cosine"]
+    if (head["dtype"], head["backbone"]) != ("bfloat16", "fused") or not gate >= 0.999:
+        fail(f"bench: gate {gate} at {head['dtype']} / {head['backbone']}")
+    loop = payload["device_loop"]
+    per_step = (loop["crop_launches_per_step"], loop["fused_launches_per_step"])
+    if per_step != (1, 44):
+        fail(f"bench: (crop, fused) launches per device-loop step {per_step}, want (1, 44)")
+    images = payload["bucket_images"] * payload["bucket_launches"]["runs"] + 1
+    got = (payload["bucket_launches"]["crop"], payload["bucket_launches"]["fused_mbconv"])
+    if got != (images, 11 * images):
+        fail(f"bench: bucket leg (crop, fused) launches {got}, want {(images, 11 * images)}")
+    results["patch_crop"]["launches"] += got[0]
+    results["fused_mbconv"]["launches"] += got[1]
+    say(f"bench: ok: gate {gate}, launches per step {per_step}, bucket {got} over"
+        f" {images} images, failed legs none, device {head['device']}")
+    say(f"time bench on {smi}: device loop {head['value']} patch-features/s (runs"
+        f" {payload['device_runs_pps']}), roofline {payload['roofline']}; bucket"
+        f" {head['bucket_patches_per_sec']}; stage budget {payload['stage_budget']};"
+        f" annotate {head['annotate_latency_ms']} ms (CPU parity: feature cosine"
+        f" {payload['annotate']['cpu_parity_min_cosine']}, max logit gap"
+        f" {payload['annotate']['cpu_parity_max_logit_diff']}); train"
+        f" {head['train_samples_per_sec']} samples/s; serve"
+        f" {head['serve_rows_per_sec']} rows/s; phase {time.perf_counter() - t0:.1f} s")
+
+
 def phase_parallel(variables, config, results, tmp: Path, smi: str):
     import dataclasses
 
@@ -4006,6 +4071,7 @@ def main() -> None:
                   Path(tmp), smi)
         timed("jobs", phase_jobs, bucket, Path(tmp), smi)
         timed("drives", phase_drives, results, Path(tmp), smi)
+        timed("bench", phase_bench, results, Path(tmp), smi)
         timed("parallel", phase_parallel, variables, config, results, Path(tmp), smi)
     say(f"phases: {time.perf_counter() - t_start:.1f} s in all")
 

@@ -18,6 +18,7 @@ stdlib-HTTP S3 backend (``s3_store``).
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
 from collections.abc import Iterator
 from concurrent.futures import ThreadPoolExecutor, as_completed
@@ -162,6 +163,13 @@ class LocalFSObjectStore(ObjectStore):
         path = self._path(bucket, key)
         if path.is_file():
             path.unlink()
+
+    def copy_bucket_dir(self, bucket: str, src_prefix: str, dst_prefix: str) -> None:
+        """Copy the tree under ``src_prefix`` to ``dst_prefix`` in the same
+        bucket, merging into what ``dst_prefix`` already holds."""
+        src = self.root / bucket / src_prefix
+        dst = self.root / bucket / dst_prefix
+        shutil.copytree(src, dst, dirs_exist_ok=True)
 
 
 def get_default_store() -> ObjectStore:

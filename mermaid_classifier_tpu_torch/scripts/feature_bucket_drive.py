@@ -85,6 +85,18 @@ def log(msg: str) -> None:
 # -- corpus -------------------------------------------------------------------
 
 
+def smooth_field(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """One (h, w, 3) uint8 image: a (h // 32, w // 32) random field upsampled
+    bilinearly, plus a per-pixel dither in [-12, 12] shared by the channels."""
+    from PIL import Image
+
+    base = rng.integers(0, 256, size=(h // 32, w // 32, 3), dtype=np.uint8)
+    arr = np.asarray(Image.fromarray(base).resize((w, h), Image.BILINEAR),
+                     dtype=np.int16)
+    dither = rng.integers(-12, 13, size=(h, w, 1), dtype=np.int16)
+    return np.clip(arr + dither, 0, 255).astype(np.uint8)
+
+
 def synthesize_corpus(
     store_root: Path,
     n_images: int,
@@ -119,11 +131,7 @@ def synthesize_corpus(
         lines = ["image_id,image_key,row,col"]
         for _ in range(per_source[s]):
             h, w = sizes[idx % len(sizes)]
-            base = rng.integers(0, 256, size=(h // 32, w // 32, 3), dtype=np.uint8)
-            img = Image.fromarray(base).resize((w, h), Image.BILINEAR)
-            arr = np.asarray(img, dtype=np.int16)
-            dither = rng.integers(-12, 13, size=(h, w, 1), dtype=np.int16)
-            arr = np.clip(arr + dither, 0, 255).astype(np.uint8)
+            arr = smooth_field(rng, h, w)
             buf = io.BytesIO()
             Image.fromarray(arr).save(buf, format="JPEG", quality=jpeg_quality)
             key = f"s{source_id}/images/i{idx:05d}.jpg"

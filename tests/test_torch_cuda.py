@@ -1413,3 +1413,20 @@ def test_preflight_on_cuda_mesh_allocates_nothing(nccl_mesh):
     assert torch.cuda.max_memory_allocated() <= before
     assert report["resident_epoch"]["rows_padded"] == 449_099
     assert report["resident_epoch"]["buffer_gb_per_device"] == 1.84
+
+
+def test_bench_device_loop_and_gate_on_cuda(cuda):
+    """The bench's gate and device loop at 256 points on the card (B0 224,
+    bf16, ``fused``): the gate passes, each step launches one crop and 22
+    fused blocks (2 chunks of 128), and every repeat reads a rate."""
+    from mermaid_classifier_tpu_torch import bench
+
+    config = EfficientNetConfig(compute_dtype="bfloat16")
+    variables = init_backbone_params(0, config)
+    forward = bench.make_extractor("fused", variables, config, cuda,
+                                   128).features_for_patches_device
+    assert bench.numerics_gate(forward, variables, config, cuda) >= 0.999
+    loop = bench.run_device_loop(forward, config, cuda, image_size=1536, points=256,
+                                 chunk=128, iters=2, warmup=1, repeats=2)
+    assert (loop["crop_launches_per_step"], loop["fused_launches_per_step"]) == (1, 22)
+    assert len(loop["runs_pps"]) == 2 and min(loop["runs_pps"]) > 0

@@ -2,8 +2,8 @@
 
 Every module of ``mermaid_classifier_tpu_torch`` imports without jax, flax,
 optax, sklearn, pandas, PIL, ml_dtypes, pyarrow, yaml, psutil, pydantic,
-matplotlib or any module of the JAX package
-``mermaid_classifier_tpu`` (checked in a fresh interpreter: the test process
+matplotlib, any module of the JAX package
+``mermaid_classifier_tpu`` or the JAX package's root ``bench.py`` (checked in a fresh interpreter: the test process
 has jax loaded by tests/conftest.py), and ``chip_smoke.py`` refuses to run —
 exit code non-zero, no ``"ok": true`` — where there is no CUDA card or no
 port beside it."""
@@ -16,10 +16,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 # The top-level name of each module: "mermaid_classifier_tpu_torch" is its
-# own name, not the JAX package's.
+# own name, not the JAX package's; "bench" is the JAX package's root bench
+# (the port's is mermaid_classifier_tpu_torch.bench).
 FORBIDDEN = ("jax", "flax", "optax", "sklearn", "pandas", "PIL", "ml_dtypes",
              "pyarrow", "yaml", "psutil", "pydantic", "matplotlib",
-             "mermaid_classifier_tpu")
+             "mermaid_classifier_tpu", "bench")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -45,7 +46,7 @@ def test_port_imports_no_jax_pandas_or_pil():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 109
+    assert int(n_modules) >= 110
     assert bad.strip() == "[]", bad
 
 
@@ -61,12 +62,13 @@ NEW_MODULES = (
     "mermaid_classifier_tpu_torch.scripts.full_recipe_drive",
     "mermaid_classifier_tpu_torch.scripts.feature_bucket_drive",
     "mermaid_classifier_tpu_torch.scripts.sklearn_reference_baseline",
+    "mermaid_classifier_tpu_torch.bench",
 )
 
 
 def test_landing_strip_cache_and_quality_modules_in_the_walk():
-    """The weight landing strip, the packed cache, the quality check and
-    the at-scale drives are walked (and so import-checked) above, and
+    """The weight landing strip, the packed cache, the quality check, the
+    at-scale drives and the bench are walked (and so import-checked) above, and
     importing the native module builds nothing."""
     code = (
         "import pkgutil, mermaid_classifier_tpu_torch as pkg\n"

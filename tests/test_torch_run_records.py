@@ -1,7 +1,8 @@
 """The port's committed run records (``docs/torch_runs/``) keep their
 contract: each parses, names the card it ran on (``device.name`` and
 ``device.power_limit`` as nvidia-smi gives them), carries the keys its
-drive's comparisons rely on, and is indexed in the directory's README.
+drive's or the bench's comparisons rely on, and is indexed in the
+directory's README.
 The JAX package's records (``docs/runs/``) are tests/test_run_records.py's."""
 
 import json
@@ -15,6 +16,9 @@ RECIPE_KEYS = {"train_full_recipe_minutes", "stage_seconds", "subsample_realized
                "log_loss", "export_parity_max_abs_diff", "device", "recipe"}
 BUCKET_KEYS = {"images_total", "points_total", "stage_seconds", "kill_resume",
                "kernel_launches", "device", "ok"}
+BENCH_KEYS = {"metric", "value", "device_runs_pps", "numerics_gate_cosine", "roofline",
+              "bucket_patches_per_sec", "annotate_latency_ms", "train_samples_per_sec",
+              "serve_rows_per_sec", "quality", "full_recipe", "device"}
 
 
 def _records(prefix: str = "") -> dict[str, dict]:
@@ -70,3 +74,36 @@ def test_bucket_records_prove_the_resume():
         assert set(launches) == {"uninterrupted", "killed", "resume"}, name
         for process, got in launches.items():
             assert got["crop"] == got["images_written"] > 0, (name, process)
+
+
+def test_bench_records_hold_their_contract():
+    """Each bench record (``python -m mermaid_classifier_tpu_torch.bench``
+    at its defaults) has every leg's key and no failed leg, passed its gate
+    at bf16 ``fused``, launched 1 crop and 11 fused blocks per 128-patch
+    chunk per device-loop step, carries both roofline bounds, and ran the
+    C2 recipe at its full subsample through the export gate."""
+    records = _records("bench_")
+    assert records, "no committed bench record of the port"
+    for name, record in records.items():
+        missing = sorted(BENCH_KEYS - record.keys())
+        assert not missing, f"{name} lacks {missing}"
+        assert record["failed_legs"] == [], name
+        assert record["metric"] == "patch_features_per_sec" and record["value"] > 0
+        assert (record["dtype"], record["backbone"]) == ("bfloat16", "fused"), name
+        assert record["numerics_gate_cosine"] >= 0.999, name
+        loop = record["device_loop"]
+        assert (loop["crop_launches_per_step"], loop["fused_launches_per_step"]) == (
+            1, 11 * loop["points"] // loop["chunk"]), name
+        roofline = record["roofline"]
+        assert roofline["bound_by"] in ("bytes", "operations"), name
+        assert roofline["schedule"] == record["backbone"], name
+        for key in ("modeled_hbm_bound_us_per_patch", "flop_bound_us_per_patch",
+                    "achieved_us_per_patch", "roofline_fraction",
+                    "schedule_hbm_bound_us_per_patch", "schedule_roofline_fraction"):
+            assert roofline[key] > 0, (name, key)
+        annotate = record["annotate"]
+        assert annotate["cpu_parity_min_cosine"] >= 0.999, name
+        assert math.isfinite(annotate["cpu_parity_max_logit_diff"]), name
+        recipe = record["full_recipe"]
+        assert recipe["subsample_realized"] == 449_099, name
+        assert recipe["export_parity_max_abs_diff"] <= 1e-6, name

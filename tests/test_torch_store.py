@@ -95,9 +95,24 @@ def _download_parallel(mod, store, tmp):
     return [failed, (tmp / "out/missing").exists(), kept, local.read_bytes()]
 
 
+def _copy_bucket_dir(mod, store, tmp):
+    """A nested tree, a stray temp file and a binary payload copied into a
+    prefix that already holds a file; then a missing source."""
+    for key, data in (("run1/a.npz", b"a"), ("run1/s1/b.npz", bytes(range(256))),
+                      ("run1/s1/deep/c.csv", b"x,y\n1,2\n"), ("run2/keep.txt", b"k"),
+                      ("run2/s1/b.npz", b"old")):
+        store.put_bytes("b", key, data)
+    (store.root / "b" / "run1" / "s1" / "stray.part").write_bytes(b"junk")
+    store.copy_bucket_dir("b", "run1", "run2")
+    tree = {str(p.relative_to(store.root)): p.read_bytes()
+            for p in sorted((store.root / "b").rglob("*")) if p.is_file()}
+    return [tree, sorted(store.list_keys("b", prefix="run2/")),
+            _observe(lambda: store.copy_bucket_dir("b", "missing", "run3"))]
+
+
 @pytest.mark.parametrize("scenario", [
     _put_get_exists, _overwrite, _list_keys, _key_escape, _download, _delete,
-    _download_parallel,
+    _download_parallel, _copy_bucket_dir,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_store_matches_jax(scenario, tmp_path):
     got = []
