@@ -32,6 +32,15 @@ still keeps the string: an image_id "007" stays "007" (pandas: "7").
 Output layout (target bucket):
   ``s{source_id}/features/i{image_id}.features.npz``
   ``s{source_id}/annotations.csv`` (copied once, idempotent).
+
+Host spans (``utils/profiling.py``), keyed by source id or image id:
+``bucket.open`` (the source's annotations, copy, sweep and listing),
+``bucket.prefetch`` (the first window of decode submits) and
+``bucket.drain`` (the writer's last images) once per source; per image
+``bucket.decode`` (decode thread),
+``bucket.decode_wait`` and ``bucket.handoff`` (main thread, around the
+extractor's own spans), ``bucket.readback_wait`` and ``bucket.write``
+(writer thread).
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import queue
 import re
 import tempfile
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from logging import getLogger
@@ -55,6 +65,7 @@ from mermaid_classifier_tpu_torch.data.features_io import write_feature_file
 from mermaid_classifier_tpu_torch.data.store import ObjectStore
 from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
 from mermaid_classifier_tpu_torch.serve.image_sources import decode_image_bytes
+from mermaid_classifier_tpu_torch.utils import profiling
 
 logger = getLogger(__name__)
 
@@ -308,9 +319,10 @@ class FeatureBucketBuilder:
                 existing.add(m.group("image"))
         return existing
 
-    def process_source(self, source_id: str) -> SourceResult:
-        source_id = str(source_id)
-        result = SourceResult(source_id=source_id)
+    def _open_source(self, source_id: str, result: SourceResult) -> list:
+        """Read the source's annotations, copy them to the target, sweep a
+        killed run's partial writes, list the done images; the (image id,
+        points) still to extract, with ``result``'s counts set."""
         annotations = self.read_annotations(source_id)
         if self.write_outputs:
             self.upload_annotations_csv(source_id)
@@ -339,6 +351,13 @@ class FeatureBucketBuilder:
             if image_id not in existing
         ]
         result.images_skipped = result.images_total - len(todo)
+        return todo
+
+    def process_source(self, source_id: str) -> SourceResult:
+        source_id = str(source_id)
+        result = SourceResult(source_id=source_id)
+        with profiling.span("bucket.open", key=source_id):
+            todo = deque(self._open_source(source_id, result))
 
         def fetch_decode(item):
             image_id, rows = item
@@ -348,9 +367,10 @@ class FeatureBucketBuilder:
                     f"image {image_id} maps to {len(image_keys)} distinct"
                     f" image_keys; expected exactly 1."
                 )
-            return self._decode_image(
-                self.store.get_bytes(self.source_bucket, rows[0].image_key)
-            )
+            with profiling.span("bucket.decode", key=image_id):
+                return self._decode_image(
+                    self.store.get_bytes(self.source_bucket, rows[0].image_key)
+                )
 
         # Depth-1 device pipeline on top of decode-ahead: image i is
         # dispatched with its readback queued (no host sync), then a writer
@@ -377,34 +397,42 @@ class FeatureBucketBuilder:
         def finalize(pending) -> None:
             image_id, rowcols, readback, launched = pending
             try:
-                features = readback.wait()
-                n_points = (
-                    self._write_features(source_id, image_id, rowcols, features)
-                    if self.write_outputs else len(rowcols)
-                )
+                with profiling.span("bucket.readback_wait", key=image_id):
+                    features = readback.wait()
             except Exception as exc:  # noqa: BLE001 - per-image isolation
                 record_failure(image_id, exc)
                 return
-            with result_lock:
-                result.images_done += 1
-                result.points_done += n_points
+            with profiling.span("bucket.write", key=image_id):
                 try:
-                    self._record_progress(
-                        {"source_id": source_id, "image_id": image_id,
-                         "points": n_points}
+                    n_points = (
+                        self._write_features(source_id, image_id, rowcols, features)
+                        if self.write_outputs else len(rowcols)
                     )
-                except Exception:  # noqa: BLE001
-                    # The bucket (not the log) is the progress truth: the
-                    # features are written, so a failing progress-log write
-                    # (e.g. full disk) must neither mark the image failed
-                    # nor escape into the writer loop.
-                    logger.exception(
-                        "progress-log write failed for image %s", image_id
-                    )
-            # The process's kernel launches as of this image's dispatch: a
-            # process killed mid-run still leaves its count per written image.
-            logger.info("image %s written (%d points); kernel launches so far:"
-                        " crop %d, fused_mbconv %d", image_id, n_points, *launched)
+                except Exception as exc:  # noqa: BLE001 - per-image isolation
+                    record_failure(image_id, exc)
+                    return
+                with result_lock:
+                    result.images_done += 1
+                    result.points_done += n_points
+                    try:
+                        self._record_progress(
+                            {"source_id": source_id, "image_id": image_id,
+                             "points": n_points}
+                        )
+                    except Exception:  # noqa: BLE001
+                        # The bucket (not the log) is the progress truth: the
+                        # features are written, so a failing progress-log write
+                        # (e.g. full disk) must neither mark the image failed
+                        # nor escape into the writer loop.
+                        logger.exception(
+                            "progress-log write failed for image %s", image_id
+                        )
+                # The process's kernel launches as of this image's dispatch: a
+                # process killed mid-run still leaves its count per written
+                # image.
+                logger.info("image %s written (%d points); kernel launches so"
+                            " far: crop %d, fused_mbconv %d", image_id, n_points,
+                            *launched)
 
         done_queue: queue.Queue = queue.Queue(maxsize=2)
 
@@ -433,29 +461,40 @@ class FeatureBucketBuilder:
         try:
             with ThreadPoolExecutor(max_workers=self.decode_workers) as pool:
                 in_flight: list = []
-                cursor = 0
-                while cursor < len(todo) or in_flight:
-                    while cursor < len(todo) and len(in_flight) < self.prefetch:
-                        item = todo[cursor]
+
+                def refill() -> None:
+                    while todo and len(in_flight) < self.prefetch:
+                        item = todo.popleft()
                         in_flight.append((item, pool.submit(fetch_decode, item)))
-                        cursor += 1
+
+                # Every submit wakes a decode thread, which may hold the
+                # interpreter lock before the next submit.
+                with profiling.span("bucket.prefetch", key=source_id):
+                    refill()
+                while todo or in_flight:
+                    refill()
                     (image_id, rows), future = in_flight.pop(0)
-                    try:
-                        image = future.result()
-                        rowcols = np.asarray(
-                            [(a.row, a.col) for a in rows], dtype=np.int32
-                        ).reshape(-1, 2)
-                        readback = self.extractor.extract_features_async(
-                            image, rowcols
-                        )
-                    except Exception as exc:  # noqa: BLE001 - per-image isolation
-                        record_failure(image_id, exc)
-                        continue
-                    launched = (patch_crop.launches, fused_mbconv.launches)
-                    done_queue.put((image_id, rowcols, readback, launched))
+                    with profiling.keyed(image_id):
+                        try:
+                            with profiling.span("bucket.decode_wait"):
+                                image = future.result()
+                            rowcols = np.asarray(
+                                [(a.row, a.col) for a in rows], dtype=np.int32
+                            ).reshape(-1, 2)
+                            readback = self.extractor.extract_features_async(
+                                image, rowcols
+                            )
+                        except Exception as exc:  # noqa: BLE001 - per-image isolation
+                            record_failure(image_id, exc)
+                            continue
+                        launched = (patch_crop.launches, fused_mbconv.launches)
+                        # Blocks while the writer holds two images.
+                        with profiling.span("bucket.handoff"):
+                            done_queue.put((image_id, rowcols, readback, launched))
         finally:
-            done_queue.put(None)
-            writer_thread.join()
+            with profiling.span("bucket.drain", key=source_id):
+                done_queue.put(None)
+                writer_thread.join()
         return result
 
     def _write_features(

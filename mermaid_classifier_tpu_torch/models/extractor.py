@@ -54,6 +54,7 @@ from mermaid_classifier_tpu_torch.models.efficientnet import (
 from mermaid_classifier_tpu_torch.ops import fused_mbconv
 from mermaid_classifier_tpu_torch.ops.patch_crop import extract_patches
 from mermaid_classifier_tpu_torch.ops.patch_ops import channel_scale_bias
+from mermaid_classifier_tpu_torch.utils import profiling
 
 BACKBONE_IMPLS = ("module", "folded", "fused")
 
@@ -229,8 +230,9 @@ class FeatureExtractor:
         """The raw (H, W, 3) uint8 image on the device: one host-to-device
         copy, and a host copy only when the image is not contiguous
         uint8."""
-        return torch.from_numpy(
-            np.ascontiguousarray(image, dtype=np.uint8)).to(self.device)
+        with profiling.span("extract.upload"):
+            return torch.from_numpy(
+                np.ascontiguousarray(image, dtype=np.uint8)).to(self.device)
 
     def _crop(self, image: torch.Tensor, rowcols: np.ndarray) -> torch.Tensor:
         """Raw device image + validated, non-empty (P, 2) points -> the
@@ -313,15 +315,18 @@ class FeatureExtractor:
     def extract_features_async(self, image: np.ndarray, rowcols) -> FeatureReadback:
         """Dispatch one image and queue its features' readback without
         waiting for it (see the module docstring). On the CPU the
-        hand-off is a plain copy."""
-        features = self.extract_features_device(image, rowcols)
-        if features.device.type != "cuda":
-            return FeatureReadback(features.clone())
-        host = torch.empty(features.shape, dtype=features.dtype, pin_memory=True)
-        host.copy_(features, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(features.device))
-        return FeatureReadback(host, event)
+        hand-off is a plain copy. Spans: ``extract.dispatch`` over the
+        call, ``extract.upload`` (``_upload``) within it; the rest of the
+        dispatch is the enqueue."""
+        with profiling.span("extract.dispatch"):
+            features = self.extract_features_device(image, rowcols)
+            if features.device.type != "cuda":
+                return FeatureReadback(features.clone())
+            host = torch.empty(features.shape, dtype=features.dtype, pin_memory=True)
+            host.copy_(features, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(features.device))
+            return FeatureReadback(host, event)
 
     def extract_features(self, image: np.ndarray, rowcols) -> np.ndarray:
         """The per-image entry point: decoded image + points -> (P, D)

@@ -277,11 +277,17 @@ def _run(args, source_ids, weights, config, mesh) -> int:
     result = builder.run(available, verify_numerics=verify)
     logger.info(result.describe())
     from mermaid_classifier_tpu_torch.ops import fused_mbconv, patch_crop
+    from mermaid_classifier_tpu_torch.utils import profiling
 
     # What this process launched on the card (0 on the CPU, where the
     # wrappers run their plain versions): a launcher reads it per worker.
     logger.info("kernel launches in this process: crop %d, fused_mbconv %d",
                 patch_crop.launches, fused_mbconv.launches)
+    # Where the host's time went, by the program's spans (bucket.*,
+    # extract.*): one line per span name.
+    for name, spent in profiling.summary().items():
+        logger.info("span %s: %d in %.3f s, %.3f ms each", name, spent["count"],
+                    spent["total_s"], spent["mean_ms"])
     return result.exit_code
 
 

@@ -88,6 +88,7 @@ import torch.nn.functional as F
 from mermaid_classifier_tpu_torch.inference.head import head_apply, mlp_logits
 from mermaid_classifier_tpu_torch.models.extractor import _resolve_device
 from mermaid_classifier_tpu_torch.ops.fused_mbconv import full_f32
+from mermaid_classifier_tpu_torch.utils import profiling
 
 # Upper bound on the row-sum drift expected from a softmax computed in
 # float32 then cast to float64.
@@ -158,6 +159,7 @@ class _StepRunner:
         self.losses = torch.zeros(capacity, dtype=torch.float32, device=device)
         self.counter = torch.zeros(1, dtype=torch.int64, device=device)
         self.graph = None
+        self.n_steps = 0
 
     def step(self, clf: "MLPClassifier") -> None:
         clf._adam_step(self.src, self.scale, self.class_w, self.batches,
@@ -167,6 +169,10 @@ class _StepRunner:
         """Warm the step up on a side stream (PyTorch's whole-network capture
         asks for it), put the state back as it was, then capture one step.
         Capture records the step's kernels without running them."""
+        with profiling.span("train.capture"):
+            self._capture(clf)
+
+    def _capture(self, clf: "MLPClassifier") -> None:
         device = clf.device
         state = clf._state_tensors()
         saved = [t.detach().clone() for t in state]
@@ -198,11 +204,15 @@ class _StepRunner:
             ) from exc
         self.graph = graph
 
-    def run(self, clf: "MLPClassifier", packed: np.ndarray) -> np.ndarray:
-        """Run one step per row of ``packed`` and return the step losses
-        (one readback)."""
-        n_steps = packed.shape[0]
-        self.batches[:n_steps].copy_(torch.from_numpy(packed))
+    def load(self, packed: np.ndarray) -> None:
+        """Copy one row of ``packed`` per step into ``batches``."""
+        self.n_steps = packed.shape[0]
+        self.batches[:self.n_steps].copy_(torch.from_numpy(packed))
+
+    def run(self, clf: "MLPClassifier") -> np.ndarray:
+        """Run one step per loaded row and return the step losses (one
+        readback)."""
+        n_steps = self.n_steps
         captured = clf.device.type == "cuda" and clf.capture_step
         with full_f32():
             if captured and self.graph is None:
@@ -504,11 +514,18 @@ class MLPClassifier:
 
     def _run_steps(self, kind: str, src, scale, idx_shuf: np.ndarray,
                    y_shuf: np.ndarray, batch: int) -> tuple[np.ndarray, np.ndarray]:
+        """``_load_steps``, then one step per mini-batch; the step losses
+        and real row counts."""
+        runner, ns = self._load_steps(kind, src, scale, idx_shuf, y_shuf, batch)
+        return runner.run(self).astype(np.float64), ns
+
+    def _load_steps(self, kind: str, src, scale, idx_shuf: np.ndarray,
+                    y_shuf: np.ndarray, batch: int):
         """Pad to ``n_batches x batch`` rows (padding rows point at row 0,
         class 0), on a mesh each batch further to the rank-count multiple
-        (weight-0 rows past the real count), run one step per mini-batch on
-        the runner of this source and geometry, and return the step losses
-        and real row counts."""
+        (weight-0 rows past the real count), and load the mini-batches into
+        the runner of this source and geometry; the runner and the real
+        row counts."""
         n_samples = len(idx_shuf)
         n_batches = -(-n_samples // batch)
         pad = n_batches * batch - n_samples
@@ -540,8 +557,8 @@ class MLPClassifier:
                                  self._class_weights_on_device(), width,
                                  1 << max(n_batches - 1, 0).bit_length(), shard)
             self._runners[key] = runner
-        losses = runner.run(self, packed).astype(np.float64)
-        return losses, packed[:, 2 * width].astype(np.float64)
+        runner.load(packed)
+        return runner, packed[:, 2 * width].astype(np.float64)
 
     def _mesh(self):
         """The mesh this classifier trains over, checked against its
@@ -930,7 +947,20 @@ class MLPClassifier:
     ) -> "MLPClassifier":
         """``partial_fit(X_resident[indices], y, classes)`` without the rows
         visiting the host: the same shuffle, padding, mini-batches and step,
-        bitwise equal to ``partial_fit`` on the gathered rows."""
+        bitwise equal to ``partial_fit`` on the gathered rows. Spans
+        ``train.call`` over the call, keyed by its index, and
+        ``train.prepare`` from its entry to its first step (a capture
+        left out)."""
+        with profiling.span("train.call", key=getattr(self, "n_iter_", 0)):
+            with profiling.span("train.prepare"):
+                runner, ns = self._prepare_resident(indices, y, classes)
+            losses = runner.run(self).astype(np.float64)
+            self._record_loss(losses, ns, len(indices))
+        return self
+
+    def _prepare_resident(self, indices, y, classes):
+        """``partial_fit_resident`` up to its first step: the checks, the
+        shuffle and the loaded runner; the runner and the real row counts."""
         if getattr(self, "_resident_X", None) is None:
             raise ValueError("call set_resident_features(X) first.")
         indices = np.asarray(indices, dtype=np.int32)
@@ -963,11 +993,9 @@ class MLPClassifier:
         order = np.arange(n_samples)
         if self.shuffle:
             rng.shuffle(order)
-        losses, ns = self._run_steps("resident", self._resident_X,
-                                     self._resident_scale, indices[order],
-                                     y_indices[order], batch_size)
-        self._record_loss(losses, ns, n_samples)
-        return self
+        return self._load_steps("resident", self._resident_X,
+                                self._resident_scale, indices[order],
+                                y_indices[order], batch_size)
 
     # --- prediction -----------------------------------------------------------
 

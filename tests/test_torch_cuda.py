@@ -528,6 +528,32 @@ def test_captured_step_equals_eager_step(cuda):
     assert _same_weights(captured, eager)
 
 
+def test_the_step_is_captured_once_in_a_span(cuda):
+    """One ``train.capture`` span, inside ``train.call``, on the first call
+    of a runner and none on the calls after it; one ``train.call`` and one
+    ``train.prepare`` per call."""
+    import time
+
+    from mermaid_classifier_tpu_torch.utils import profiling
+
+    X, y = _train_data(3000, 1024, 20, seed=4)
+    clf = _resident_clf(cuda, X)
+    counts = []
+    for _ in range(3):
+        t0 = time.perf_counter_ns()
+        clf.partial_fit_resident(np.arange(3000), y, classes=np.unique(y))
+        spans = [s for s in profiling.snapshot() if s.start_ns >= t0]
+        names = [s.name for s in spans]
+        counts.append(tuple(names.count(n) for n in
+                            ("train.capture", "train.call", "train.prepare")))
+        if len(counts) == 1:
+            (capture,) = [s for s in spans if s.name == "train.capture"]
+            (prepare,) = [s for s in spans if s.name == "train.prepare"]
+            assert capture.parent == "train.call" and capture.key == 0
+            assert prepare.end_ns <= capture.start_ns
+    assert counts == [(1, 1, 1), (0, 1, 1), (0, 1, 1)]
+
+
 @pytest.mark.parametrize("class_weight", [None, "ramp"])
 def test_resident_equals_streamed_on_cuda(cuda, class_weight):
     """partial_fit_resident and partial_fit on the gathered rows, both
