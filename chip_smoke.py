@@ -2209,9 +2209,10 @@ def phase_bucket(variables, config, tmp: Path, smi: str, trunk_rates: dict):
         f" {counts['crop_kernel']} (images), fused expand_dw"
         f" {counts['expand_dw_kernel']} (11 x {chunks} chunks)")
 
-    # Does the pageable raw upload block the host while the previous image
-    # computes? Its host time after a 128-point image is queued, against the
-    # same upload on an idle stream and a pinned non-blocking copy.
+    # Does the raw upload block the host while the previous image computes?
+    # The extractor's staged upload after a 128-point image is queued,
+    # against the same upload on an idle stream and a bare pinned
+    # non-blocking copy.
     key, rowcols, _ = truth[spot[0]]
     image = decode_image_bytes(store.get_bytes("src", key))
     pts = points(rng, 128)

@@ -5,7 +5,13 @@ on one device, given explicitly (``device="cuda"`` or ``"cpu"``; there is no
 "cuda if available"). Per image:
 
 1. the raw image is uploaded once, with no padded copy: the ps//2 zero pad
-   is folded into the crop;
+   is folded into the crop. On CUDA the host fills a page-locked buffer
+   from PyTorch's caching host allocator and queues a non-blocking copy
+   from it: a copy from pageable memory waits for the stream to drain
+   first, even with ``non_blocking=True``, so each image would wait for
+   the previous image's trunk and the card would start it with nothing
+   queued. The allocator records an event on the copy and hands the
+   buffer out again only once the copy has landed;
 2. the point list is padded to a multiple of ``point_bucket`` by duplicating
    point 0, and every patch is cropped and normalized on the device by the
    crop kernel (``ops/patch_crop.py``, ``pad = ps // 2``: zeros outside the
@@ -77,6 +83,14 @@ def _resolve_device(device) -> torch.device:
             " False"
         )
     return device
+
+
+def stage(image: np.ndarray, out: torch.Tensor) -> torch.Tensor:
+    """Fill the contiguous uint8 CPU tensor ``out``, of the image's shape,
+    from ``image`` in one pass, with the cast and layout of
+    ``np.ascontiguousarray(image, dtype=np.uint8)``. Returns ``out``."""
+    np.copyto(out.numpy(), image, casting="unsafe")
+    return out
 
 
 def _module_forward(variables, config: EfficientNetConfig, device):
@@ -227,12 +241,23 @@ class FeatureExtractor:
         return starts
 
     def _upload(self, image: np.ndarray) -> torch.Tensor:
-        """The raw (H, W, 3) uint8 image on the device: one host-to-device
-        copy, and a host copy only when the image is not contiguous
-        uint8."""
+        """The raw (H, W, 3) uint8 image on the device.
+
+        On the CPU: the image itself, copied only when it is not contiguous
+        uint8. On CUDA: staged into a page-locked buffer (span
+        ``extract.stage``, one per upload), then one non-blocking copy. A
+        copy from pageable memory synchronizes the stream before it is
+        queued, even with ``non_blocking=True``; this one waits for
+        nothing, so the host queues this image while the card still runs
+        the previous one (see the module docstring)."""
         with profiling.span("extract.upload"):
-            return torch.from_numpy(
-                np.ascontiguousarray(image, dtype=np.uint8)).to(self.device)
+            if self.device.type != "cuda":
+                return torch.from_numpy(
+                    np.ascontiguousarray(image, dtype=np.uint8)).to(self.device)
+            with profiling.span("extract.stage"):
+                staged = stage(image, torch.empty(
+                    image.shape, dtype=torch.uint8, pin_memory=True))
+            return staged.to(self.device, non_blocking=True)
 
     def _crop(self, image: torch.Tensor, rowcols: np.ndarray) -> torch.Tensor:
         """Raw device image + validated, non-empty (P, 2) points -> the
@@ -316,8 +341,8 @@ class FeatureExtractor:
         """Dispatch one image and queue its features' readback without
         waiting for it (see the module docstring). On the CPU the
         hand-off is a plain copy. Spans: ``extract.dispatch`` over the
-        call, ``extract.upload`` (``_upload``) within it; the rest of the
-        dispatch is the enqueue."""
+        call, ``extract.upload`` (``_upload``, with its ``extract.stage``
+        on CUDA) within it; the rest of the dispatch is the enqueue."""
         with profiling.span("extract.dispatch"):
             features = self.extract_features_device(image, rowcols)
             if features.device.type != "cuda":

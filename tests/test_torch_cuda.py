@@ -774,8 +774,9 @@ def test_readback_waits_for_its_own_image_only(cuda):
     """``FeatureReadback.wait`` returns image A's features without waiting
     for the stream: image B and a one-second spin queued after A on the
     same stream are still running when it returns; then B's own wait
-    returns B's features. (The spin goes after B: B's pageable upload
-    waits for the stream before it is queued.)"""
+    returns B's features. (The spin goes after B here; that B's staged
+    upload does not wait for A is held by
+    ``test_dispatch_does_not_wait_for_the_stream``.)"""
     config = CONFIGS["b0_60px"]
     extractor = build_extractor(
         _perturbed_variables(config, np.random.default_rng(2)), config,
@@ -793,6 +794,59 @@ def test_readback_waits_for_its_own_image_only(cuda):
     assert not torch.cuda.current_stream(cuda).query()  # the stream still runs
     np.testing.assert_array_equal(got_a, want[0])
     np.testing.assert_array_equal(b.wait(), want[1])
+
+
+def test_dispatch_does_not_wait_for_the_stream(cuda):
+    """Image B's dispatch, upload included, returns while a one-second spin
+    queued after image A still runs: the staged upload waits for nothing
+    on the stream. Both images' features are those of a synchronous
+    ``extract_features``, bit for bit."""
+    config = CONFIGS["b0_60px"]
+    extractor = build_extractor(
+        _perturbed_variables(config, np.random.default_rng(2)), config,
+        device=cuda, backbone_batch=8, point_bucket=4)
+    rng = np.random.default_rng(6)
+    images = [rng.integers(0, 256, (80, 96, 3), dtype=np.uint8),
+              rng.integers(0, 256, (72, 110, 3), dtype=np.uint8)]
+    points = [np.stack([rng.integers(0, im.shape[0], n),
+                        rng.integers(0, im.shape[1], n)], 1)
+              for im, n in zip(images, (13, 6))]
+    want = [extractor.extract_features(im, pts) for im, pts in zip(images, points)]
+    torch.cuda.synchronize()
+    a = extractor.extract_features_async(images[0], points[0])
+    torch.cuda._sleep(2_000_000_000)  # about one second of spinning
+    b = extractor.extract_features_async(images[1], points[1])
+    assert not torch.cuda.current_stream(cuda).query()  # B queued behind the spin
+    np.testing.assert_array_equal(a.wait(), want[0])
+    np.testing.assert_array_equal(b.wait(), want[1])
+
+
+def test_back_to_back_images_keep_their_own_bytes(cuda):
+    """Twelve images of three shapes dispatched with no sync between them
+    (behind a spin, so every staged buffer is still in flight when the
+    next image is staged): each image's features equal its synchronous
+    result bit for bit, and each upload was staged once."""
+    from mermaid_classifier_tpu_torch.utils import profiling
+
+    config = CONFIGS["b0_60px"]
+    extractor = build_extractor(
+        _perturbed_variables(config, np.random.default_rng(2)), config,
+        device=cuda, backbone_batch=8, point_bucket=4)
+    rng = np.random.default_rng(7)
+    shapes = [(80, 96, 3), (64, 70, 3), (97, 61, 3)]
+    images = [rng.integers(0, 256, shapes[i % 3], dtype=np.uint8) for i in range(12)]
+    points = [np.stack([rng.integers(0, im.shape[0], 5 + i),
+                        rng.integers(0, im.shape[1], 5 + i)], 1)
+              for i, im in enumerate(images)]
+    want = [extractor.extract_features(im, pts) for im, pts in zip(images, points)]
+    torch.cuda.synchronize()
+    before = profiling.summary().get("extract.stage", {}).get("count", 0)
+    torch.cuda._sleep(200_000_000)
+    readbacks = [extractor.extract_features_async(im, pts)
+                 for im, pts in zip(images, points)]
+    assert profiling.summary()["extract.stage"]["count"] - before == 12
+    for readback, expected in zip(readbacks, want):
+        np.testing.assert_array_equal(readback.wait(), expected)
 
 
 def _recipe_store(root, rng, classes, dim, images=60, pts=20):

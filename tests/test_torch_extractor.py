@@ -123,6 +123,49 @@ class TestExtractor:
             port_extractor.extract_features(image.astype(np.int64), pts),
             port_extractor.extract_features(image, pts))
 
+    @pytest.mark.parametrize("form", ["uint8", "int64", "sliced"])
+    def test_cpu_upload_gives_the_contiguous_uint8_bytes(self, port_extractor,
+                                                         form):
+        """On the CPU ``_upload`` is the image as
+        ``np.ascontiguousarray(image, dtype=np.uint8)`` gives it."""
+        image, _ = _image_and_points(12)
+        image = {"uint8": image, "int64": image.astype(np.int64) - 300,
+                 "sliced": image[::2, 1::3]}[form]
+        got = port_extractor._upload(image)
+        assert got.device.type == "cpu" and got.dtype == torch.uint8
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(
+            got.numpy(), np.ascontiguousarray(image, dtype=np.uint8))
+
+    def test_cpu_upload_is_not_staged(self, port_extractor):
+        """Only a CUDA upload goes through the page-locked stage: the CPU
+        records ``extract.upload`` and no ``extract.stage``."""
+        from mermaid_classifier_tpu_torch.utils import profiling
+
+        counts = {k: v["count"] for k, v in profiling.summary().items()}
+        port_extractor._upload(_image_and_points(13)[0])
+        after = {k: v["count"] for k, v in profiling.summary().items()}
+        assert after["extract.upload"] == counts.get("extract.upload", 0) + 1
+        assert after.get("extract.stage", 0) == counts.get("extract.stage", 0)
+
+    @pytest.mark.parametrize("dtype", [np.uint8, np.int64, np.int16, np.float32])
+    @pytest.mark.parametrize("layout", ["contiguous", "sliced", "reversed", "fortran"])
+    def test_stage_casts_as_ascontiguousarray(self, dtype, layout):
+        """``stage`` fills a plain CPU tensor with the bytes, cast and layout
+        of ``np.ascontiguousarray(image, dtype=np.uint8)``, and returns it."""
+        rng = np.random.default_rng(14)
+        values = rng.standard_normal((9, 12, 3)) * 300  # integers wrap
+        if np.issubdtype(dtype, np.floating):
+            values = np.abs(values) % 256  # in range: truncation is defined
+        image = values.astype(dtype)
+        image = {"contiguous": image, "sliced": image[1::2, ::3],
+                 "reversed": image[::-1, :, ::-1],
+                 "fortran": np.asfortranarray(image)}[layout]
+        out = torch.empty(image.shape, dtype=torch.uint8)
+        assert text.stage(image, out) is out
+        np.testing.assert_array_equal(
+            out.numpy(), np.ascontiguousarray(image, dtype=np.uint8))
+
     def test_empty_points(self, port_extractor):
         out = port_extractor.extract_features(
             np.zeros((50, 50, 3), np.uint8), np.zeros((0, 2), np.int32))
