@@ -31,9 +31,11 @@ Phases, one output line each:
    equal on the raw image at pad ps//2 (the extractor's route) and on the
    host-padded image at pad 0, and the two routes equal to each other.
 3. fused  — the fused-MBConv kernel against its plain version for each of the
-   11 fusable B0 blocks at 224 px, 128 patches: rel <= 1e-5 at f32 (TF32
-   off), rel <= 1e-2 at bf16 (the plain version rounds where the kernel
-   does; a sound kernel reads about 3.6e-3).
+   11 fusable B0 blocks at 224 px and B4's three block shapes at 380 px
+   whose whole-Cin tile overflows (``B4_SLICED``), 128 patches: rel <= 1e-5
+   at f32 (TF32 off), rel <= 1e-2 at bf16 (the plain version rounds where
+   the kernel does; a sound kernel reads about 3.6e-3). Each B4 launch
+   counts one sliced pass-1 group, each B0 launch none.
 4. depthwise — the k x k depthwise kernel against its plain version at 128
    patches, f32 and bf16, on the 8 distinct geometries of B0 224's 12
    stride-1 depthwise convs, one odd map (15^2 x 72, k5) and ``DW_EXTRA``
@@ -327,6 +329,11 @@ DW_ODD = (15, 72, 5)  # (map, channels, k): odd map, channels not a multiple of 
 DW_EXTRA = ((13, 24, 3, False), (13, 20, 5, False), (14, 480, 5, True),
             (13, 40, 7, False))
 
+# B4's fusable block shapes at 380 px whose whole-Cin tile overflows the
+# shared-memory budget even at one row, as (Cin, Cmid, k, map): the
+# sliced pass 1 takes them (13 of its 23 fused blocks).
+B4_SLICED = ((160, 960, 5, 24), (272, 1632, 5, 12), (448, 2688, 3, 12))
+
 AB_SCHEDULES = (
     "flax", "folded", "folded+dwp5", "folded+dwp3+dwp5", "folded+taps5",
     "folded+im2col", "folded+w8", "folded+fused", "folded+fused+dwp3",
@@ -486,9 +493,9 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-12))
 
 
-def perturbed_b0_variables(config):
-    """Seeded B0 variables with non-trivial BN statistics, so that folding
-    is exercised (the seeded init has identity-like stats)."""
+def perturbed_variables(config):
+    """Seeded variables of ``config`` with non-trivial BN statistics, so
+    that folding is exercised (the seeded init has identity-like stats)."""
     import numpy as np
 
     from mermaid_classifier_tpu_torch.models.efficientnet import (
@@ -588,40 +595,84 @@ def phase_crop(config, results):
         " the two routes equal")
 
 
-def phase_fused(config, folded, results):
+def check_fused_block(name, blk, rng, sliced):
+    """The fused kernel against its plain version on one block at PATCHES
+    patches, f32 and bf16, each launch counting ``sliced`` sliced pass-1
+    groups; returns ({dtype: max rel}, max abs, sliced launches)."""
     import numpy as np
     import torch
 
     from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
 
+    meta = blk["meta"]
+    x = torch.from_numpy(rng.standard_normal(
+        (PATCHES, meta.h, meta.w, meta.in_channels)).astype(np.float32)).cuda()
+    rels, worst_abs, n_sliced = {}, 0.0, 0
+    for dtype, bound in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        xin = x.to(dtype)
+        fm.sliced_launches = 0
+        got = fm.fused_mbconv(xin, blk)
+        if fm.sliced_launches != sliced:
+            fail(f"fused {name} {meta} {dtype}: {fm.sliced_launches} sliced"
+                 f" launches, want {sliced}")
+        n_sliced += fm.sliced_launches
+        with fm.full_f32():
+            want = fm.fused_mbconv_reference(xin, blk)
+        torch.cuda.synchronize()
+        rel = rel_err(got, want)
+        if not torch.isfinite(got.float()).all() or not rel <= bound:
+            fail(f"fused {name} {meta} {dtype}: rel {rel} > {bound}")
+        rels[dtype] = rel
+        worst_abs = max(worst_abs, float((got.float() - want.float()).abs().max()))
+    return rels, worst_abs, n_sliced
+
+
+def phase_fused(config, folded, results):
+    import numpy as np
+    import torch
+
+    from mermaid_classifier_tpu_torch.models.efficientnet import variant_config
+    from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
+
     rng = np.random.default_rng(SEED + 2)
-    worst_abs = 0.0
+    worst_abs, n_sliced = 0.0, 0
     rels = {}
-    for i, blk in enumerate(folded["blocks"]):
+    b0 = [blk for blk in folded["blocks"] if fm.fusable(blk["meta"])]
+    if len(b0) != 11:
+        fail(f"expected 11 fusable B0 blocks, found {len(b0)}")
+    for i, blk in enumerate(b0):
+        block_rels, block_abs, _ = check_fused_block(f"B0 block {i}", blk, rng, 0)
+        rels.update({("b0", i, d): r for d, r in block_rels.items()})
+        worst_abs = max(worst_abs, block_abs)
+
+    b4_config = variant_config("b4")
+    b4 = fm.to_device(fm.fold_backbone(perturbed_variables(b4_config),
+                                       b4_config), "cuda")
+    shapes = {}
+    for blk in b4["blocks"]:
         meta = blk["meta"]
-        if not fm.fusable(meta):
-            continue
-        x = torch.from_numpy(rng.standard_normal(
-            (PATCHES, meta.h, meta.w, meta.in_channels)).astype(np.float32)).cuda()
-        for dtype, bound in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            xin = x.to(dtype)
-            got = fm.fused_mbconv(xin, blk)
-            with fm.full_f32():
-                want = fm.fused_mbconv_reference(xin, blk)
-            torch.cuda.synchronize()
-            rel = rel_err(got, want)
-            if not torch.isfinite(got.float()).all() or not rel <= bound:
-                fail(f"fused block {i} {meta} {dtype}: rel {rel} > {bound}")
-            rels[(i, dtype)] = rel
-            worst_abs = max(worst_abs, float((got.float() - want.float()).abs().max()))
-    n_blocks = len({i for i, _ in rels})
-    if n_blocks != 11:
-        fail(f"expected 11 fusable B0 blocks, found {n_blocks}")
-    results["fused_mbconv"] = {"max_abs_err": worst_abs}
-    f32 = max(r for (_, d), r in rels.items() if d == torch.float32)
-    bf16 = max(r for (_, d), r in rels.items() if d == torch.bfloat16)
-    say(f"fused: 11 blocks x {PATCHES} patches, max rel f32 {f32:.3e}"
-        f" (<= 1e-5), bf16 {bf16:.3e} (<= 1e-2)")
+        shape = (meta.in_channels, meta.mid_channels, meta.kernel, meta.h)
+        if fm.fusable(meta) and shape in B4_SLICED:
+            shapes.setdefault(shape, blk)
+    if sorted(shapes) != sorted(B4_SLICED):
+        fail(f"expected B4's sliced block shapes {B4_SLICED}, found {sorted(shapes)}")
+    for shape in B4_SLICED:
+        block_rels, block_abs, block_sliced = check_fused_block(
+            f"B4 {shape}", shapes[shape], rng, 1)
+        rels.update({("b4", shape, d): r for d, r in block_rels.items()})
+        worst_abs = max(worst_abs, block_abs)
+        n_sliced += block_sliced
+    results["fused_mbconv"] = {"max_abs_err": worst_abs, "sliced_launches": n_sliced}
+
+    def worst(variant, dtype):
+        return max(r for (v, _, d), r in rels.items() if v == variant and d == dtype)
+
+    say(f"fused: 11 B0 blocks x {PATCHES} patches, max rel f32"
+        f" {worst('b0', torch.float32):.3e} (<= 1e-5), bf16"
+        f" {worst('b0', torch.bfloat16):.3e} (<= 1e-2), no sliced launch;"
+        f" B4's {len(B4_SLICED)} sliced block shapes at 380 px, max rel f32"
+        f" {worst('b4', torch.float32):.3e}, bf16 {worst('b4', torch.bfloat16):.3e},"
+        " one sliced launch each")
 
 
 def depthwise_geometries(config):
@@ -4040,7 +4091,7 @@ def main() -> None:
 
     timed("build", phase_build)
     timed("crop", phase_crop, config, results)
-    variables = perturbed_b0_variables(config)
+    variables = perturbed_variables(config)
     folded = fm.to_device(fm.fold_backbone(variables, config), "cuda")
     timed("fused", phase_fused, config, folded, results)
     timed("depthwise", phase_depthwise, config, results)
@@ -4084,11 +4135,13 @@ def main() -> None:
         "depthwise_conv": ("mermaid_classifier_tpu_torch/csrc/depthwise.cu",
                            "mermaid_classifier_tpu/ops/depthwise.py:65"),
     }
+    extra = {"fused_mbconv": ("sliced_launches",)}
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{key: results[name][key]
             for key in ("launches", "max_abs_err", "ms", "plain_ms",
-                        "bound_ms", "bound_by", "library_ms")}}
+                        "bound_ms", "bound_by", "library_ms")},
+         **{key: results[name][key] for key in extra.get(name, ())}}
         for name, (src, rep) in sources.items()
     ]
     say(smi)

@@ -50,10 +50,10 @@ _SIGNATURES = {
         _I,                              # residual
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,  # weights and biases
         _P, _P, _P,                      # d scratch, partial sums, SE scale
-        _I, _P,                          # rows per tile, stream
+        _I, _I, _P,                      # rows per tile, sliced, stream
     ],
     "mct_fused_pass1_smem_bytes": [
-        _I, _I, _I, _I, _I,              # act_bf16, rows, w, cin, k
+        _I, _I, _I, _I, _I, _I,          # act_bf16, sliced, rows, w, cin, k
     ],
     "mct_fused_pass1_smem_budget": [],
     "mct_depthwise": [

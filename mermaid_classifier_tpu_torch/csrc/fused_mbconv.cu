@@ -34,6 +34,16 @@
 //      registers (k 3 and 5; another odd k reads its taps through L1); d
 //      goes to an f32 scratch tensor and the tile's per-channel sums to a
 //      (P, tiles, Cmid) buffer (no atomics).
+//      Where a tile's rows of all Cin channels overflow the budget even at
+//      one row (EfficientNet-B4 and wider: Cin 160 to 448 at 12^2 to 24^2),
+//      the Sliced instance streams Cin in slices of kKC channels: each slice
+//      stages its input rows and expand-weight rows in the same buffers,
+//      the expand accumulates across the slices in the mma registers (up to
+//      kMS 16-position steps per warp, so a tile stages at most
+//      kSlicedPositions positions), and bias + SiLU + the rounding run once
+//      after the last slice. The slices take the whole tile's k steps in
+//      the same order, so both instances give the same bits. The Sliced
+//      instance is built for EfficientNet's k 3 and 5 only.
 //   2. se_kernel, one block per patch: reduces the partial sums, divides by
 //      H*W, runs FC + SiLU and FC + sigmoid into e (P, Cmid).
 //   3. project_kernel, one block per (64 out channels, 64 positions, patch):
@@ -77,6 +87,11 @@ constexpr int kLoads = 8;  // global loads in flight per thread when staging
 constexpr int kR = 4;      // adjacent depthwise outputs per lane
 // Pass-1 dynamic shared memory; ops/fused_mbconv.py:_PASS1_SMEM_BUDGET.
 constexpr int kPass1SmemBudget = 110 * 1024;
+// The sliced pass 1 (ops/fused_mbconv.py _KKC, _SLICED_POSITIONS): input
+// channels per slice, 16-position expand steps per warp, staged positions.
+constexpr int kKC = 32;
+constexpr int kMS = 4;
+constexpr int kSlicedPositions = kWarps * 16 * kMS;
 constexpr int kMaxDevices = 64;
 
 template <typename T>
@@ -128,17 +143,19 @@ __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// Shared-memory floats pass 1 needs for a tile of `rows` output rows. The
-// Python wrapper (ops/fused_mbconv.py:_pass1_smem_floats) uses the same
-// formula to choose `rows`; mct_fused_pass1_smem_bytes below lets the card
-// tests hold the two against each other.
+// Shared-memory floats pass 1 needs for a tile of `rows` output rows, its
+// input staged whole (Cin channels) or in slices of kKC. The Python wrapper
+// (ops/fused_mbconv.py:_pass1_smem_floats) uses the same formula to plan
+// the tile; mct_fused_pass1_smem_bytes below lets the card tests hold the
+// two against each other.
 template <typename T>
 __host__ __device__ inline int pass1_smem_floats(int rows, int w, int cin,
-                                                 int k) {
+                                                 int k, bool sliced) {
   const int p = (k - 1) / 2;
   const int zrows = rows + 2 * p;
-  return zrows * w * a_stride<T>(cin)            // staged input rows
-         + round_up(cin, 16) * b_stride<T>(kTC)  // expand weights, K padded
+  const int kin = sliced ? kKC : cin;            // channels staged at once
+  return zrows * w * a_stride<T>(kin)            // staged input rows
+         + round_up(kin, 16) * b_stride<T>(kTC)  // expand weights, K padded
          + zrows * (w + 2 * p) * kZs             // padded expanded map
          + kWarps * kTC;                         // partial-sum reduction
 }
@@ -253,9 +270,103 @@ __device__ __forceinline__ void warp_mma(float (&c)[NT][4],
   }
 }
 
+// Stage input channels [kc0, kc0 + kin) of n_pos staged positions (rows of
+// a contiguous NHWC range from xsrc) into xs, row stride xst, zero past Cin.
+// Each thread issues kLoads loads before it stores any, so that their
+// latencies overlap; 16-byte loads where the layout allows them (Cin and kin
+// multiples of the vector, an aligned base).
+template <typename T>
+__device__ __forceinline__ void stage_input(float* xs, int xst, const T* xsrc,
+                                            bool aligned, int n_pos, int cin,
+                                            int kc0, int kin, int tid) {
+  constexpr int kV = 16 / sizeof(T);
+  if (cin % kV == 0 && kin % kV == 0 && aligned) {
+    const int n_v = n_pos * kin / kV;
+    for (int i0 = tid; i0 < n_v; i0 += kLoads * kThreads) {
+      uint4 v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = (i0 + u * kThreads) * kV, pos = i / kin, ch = i - pos * kin;
+        if (i < n_v * kV) {
+          v[u] = kc0 + ch < cin ? *reinterpret_cast<const uint4*>(
+                                      xsrc + (size_t)pos * cin + kc0 + ch)
+                                : make_uint4(0, 0, 0, 0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = (i0 + u * kThreads) * kV, pos = i / kin, ch = i - pos * kin;
+        if (i < n_v * kV) store_vec<T>(xs + pos * xst + ch, v[u]);
+      }
+    }
+  } else {
+    const int n_x = n_pos * kin;
+    for (int i0 = tid; i0 < n_x; i0 += kLoads * kThreads) {
+      float v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = i0 + u * kThreads, pos = i / kin, ch = i - pos * kin;
+        if (i < n_x) {
+          v[u] = kc0 + ch < cin ? to_f(xsrc[(size_t)pos * cin + kc0 + ch]) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int i = i0 + u * kThreads, pos = i / kin;
+        if (i < n_x) xs[pos * xst + i - pos * kin] = v[u];
+      }
+    }
+  }
+}
+
+// Stage expand-weight rows [kc0, kc0 + kpad) of mid channels
+// [c0, c0 + kTC) into ws (row stride b_stride), zero past Cin and Cmid.
+template <typename T>
+__device__ __forceinline__ void stage_weights(float* ws, const float* wexp,
+                                              int cin, int cmid, int c0,
+                                              int kc0, int kpad, int tid) {
+  constexpr int wst = b_stride<T>(kTC);
+  if (cmid % 4 == 0 && reinterpret_cast<uintptr_t>(wexp) % 16 == 0) {
+    // Thread tid: channels c0 + 4 * (tid % 8) + 0..3 of rows tid / 8 + 32u.
+    const int cc = 4 * (tid % 8), c = c0 + cc;
+    for (int ci0 = tid / 8; ci0 < kpad; ci0 += kLoads * kThreads / 8) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int ci = kc0 + ci0 + u * kThreads / 8;
+        const float* src = wexp + (size_t)ci * cmid + c;
+        v[u] = ci < cin && c < cmid ? *reinterpret_cast<const float4*>(src)
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int ci = ci0 + u * kThreads / 8;
+        if (ci < kpad) *reinterpret_cast<float4*>(ws + ci * wst + cc) = v[u];
+      }
+    }
+  } else {
+    const int c = c0 + tid % kTC;  // the same channel for every u
+    for (int ci0 = tid / kTC; ci0 < kpad; ci0 += kLoads * kWarps) {
+      float v[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int ci = kc0 + ci0 + u * kWarps;
+        v[u] = ci < cin && c < cmid ? wexp[(size_t)ci * cmid + c] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int ci = ci0 + u * kWarps;
+        if (ci < kpad) ws[ci * wst + tid % kTC] = v[u];
+      }
+    }
+  }
+}
+
 // K: the depthwise kernel size, whose taps each lane holds in registers;
 // K = 0 takes the odd size k at run time and reads the taps through L1.
-template <typename T, int K>
+// Sliced: stage Cin in slices of kKC channels (the tile stages at most
+// kSlicedPositions positions); else all Cin channels at once.
+template <typename T, int K, bool Sliced>
 __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
     const T* __restrict__ x, int h, int w, int cin, int cmid, int k,
     const float* __restrict__ wexp,
@@ -280,8 +391,9 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
   const int wz = w + 2 * p;
   const int in_lo = max(zr0, 0);
   const int in_hi = min(zr0 + zrows, h);
-  const int xst = a_stride<T>(cin);
-  const int kpad = round_up(cin, 16);
+  const int kin = Sliced ? kKC : cin;  // input channels staged at once
+  const int xst = a_stride<T>(kin);
+  const int kpad = round_up(kin, 16);
   constexpr int wst = b_stride<T>(kTC);
 
   const int max_zrows = rows_per_tile + 2 * p;
@@ -290,78 +402,6 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
   float* zs = ws + kpad * wst;                   // (zrows, wz, kZs)
   float* red = zs + max_zrows * wz * kZs;        // (kWarps, kTC)
 
-  // Stage the tile's in-image input rows (one contiguous NHWC range) and
-  // the channel tile's expand weights, zero past Cin and Cmid. Each thread
-  // issues kLoads loads before it stores any, so that their latencies
-  // overlap; 16-byte loads where the layout allows them (Cin a multiple of
-  // the vector, Cmid of 4, aligned bases).
-  const T* xsrc = x + ((size_t)n * h + in_lo) * w * cin;
-  const int n_x = (in_hi - in_lo) * w * cin;
-  constexpr int kV = 16 / sizeof(T);
-  if (cin % kV == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    const uint4* src = reinterpret_cast<const uint4*>(xsrc);
-    for (int i0 = tid; i0 < n_x / kV; i0 += kLoads * kThreads) {
-      uint4 v[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < n_x / kV) v[u] = src[i];
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = (i0 + u * kThreads) * kV, pos = i / cin;
-        if (i < n_x) store_vec<T>(xs + pos * xst + i - pos * cin, v[u]);
-      }
-    }
-  } else {
-    for (int i0 = tid; i0 < n_x; i0 += kLoads * kThreads) {
-      T v[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = i0 + u * kThreads;
-        if (i < n_x) v[u] = xsrc[i];
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int i = i0 + u * kThreads, pos = i / cin;
-        if (i < n_x) xs[pos * xst + i - pos * cin] = to_f(v[u]);
-      }
-    }
-  }
-  if (cmid % 4 == 0 && reinterpret_cast<uintptr_t>(wexp) % 16 == 0) {
-    // Thread tid: channels c0 + 4 * (tid % 8) + 0..3 of rows tid / 8 + 32u.
-    const int cc = 4 * (tid % 8), c = c0 + cc;
-    for (int ci0 = tid / 8; ci0 < kpad; ci0 += kLoads * kThreads / 8) {
-      float4 v[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int ci = ci0 + u * kThreads / 8;
-        const float* src = wexp + (size_t)ci * cmid + c;
-        v[u] = ci < cin && c < cmid ? *reinterpret_cast<const float4*>(src)
-                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int ci = ci0 + u * kThreads / 8;
-        if (ci < kpad) *reinterpret_cast<float4*>(ws + ci * wst + cc) = v[u];
-      }
-    }
-  } else {
-    const int c = c0 + tid % kTC;  // the same channel for every u
-    for (int ci0 = tid / kTC; ci0 < kpad; ci0 += kLoads * kWarps) {
-      float v[kLoads];
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int ci = ci0 + u * kWarps;
-        v[u] = ci < cin && c < cmid ? wexp[(size_t)ci * cmid + c] : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int ci = ci0 + u * kWarps;
-        if (ci < kpad) ws[ci * wst + tid % kTC] = v[u];
-      }
-    }
-  }
   // Halo zeros: out-of-image rows, then the side columns of the others.
   const int top = in_lo - zr0, n_out_rows = zrows - (in_hi - in_lo);
   for (int i = tid; i < n_out_rows * wz * kTC; i += kThreads) {
@@ -374,13 +414,12 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
     const int col = rest / kTC, zx = col < p ? col : w + col;
     zs[((top + r) * wz + zx) * kZs + rest % kTC] = 0.0f;
   }
-  __syncthreads();
 
-  // Expand on the tensor cores, 16 staged positions per warp step; the
-  // epilogue writes bias + SiLU, rounded to the activation type, into the
-  // padded map (zeros for channels past Cmid).
-  const int g = lane >> 2, t = lane & 3;
+  // The tile's in-image input rows are one contiguous NHWC range.
+  const T* xsrc = x + ((size_t)n * h + in_lo) * w * cin;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int m_all = (in_hi - in_lo) * w;
+  const int g = lane >> 2, t = lane & 3;
   float be[4][2];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -390,12 +429,10 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
       be[j][e] = c < cmid ? bexp[c] : 0.0f;
     }
   }
-  const int kend = round_up(cin, kDepth<T>);
-  for (int m0 = warp * 16; m0 < m_all; m0 += kWarps * 16) {
-    float acc[4][4] = {};
-    warp_mma<T, 4>(acc, xs + min(m0 + g, m_all - 1) * xst,
-                   xs + min(m0 + g + 8, m_all - 1) * xst, cin, kend, ws, wst,
-                   lane);
+  // The expand's epilogue for the 16 positions from m0: bias + SiLU,
+  // rounded to the activation type, into the padded map (zeros for
+  // channels past Cmid).
+  auto epilogue = [&](int m0, const float (&acc)[4][4]) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int m = m0 + g + 8 * half;
@@ -410,6 +447,45 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
           dst[cc] = c0 + cc < cmid ? round_act<T>(z) : 0.0f;
         }
       }
+    }
+  };
+
+  // Expand on the tensor cores, 16 staged positions per warp step.
+  if constexpr (Sliced) {
+    float acc[kMS][4][4] = {};
+    for (int kc0 = 0; kc0 < cin; kc0 += kKC) {
+      if (kc0 > 0) __syncthreads();  // the last slice's products are done
+      stage_input<T>(xs, xst, xsrc, aligned, m_all, cin, kc0, kKC, tid);
+      stage_weights<T>(ws, wexp, cin, cmid, c0, kc0, kpad, tid);
+      __syncthreads();
+      const int klim = min(cin - kc0, kKC);
+      const int kend = round_up(klim, kDepth<T>);
+#pragma unroll
+      for (int ms = 0; ms < kMS; ++ms) {
+        const int m0 = (warp + ms * kWarps) * 16;
+        if (m0 < m_all) {
+          warp_mma<T, 4>(acc[ms], xs + min(m0 + g, m_all - 1) * xst,
+                         xs + min(m0 + g + 8, m_all - 1) * xst, klim, kend,
+                         ws, wst, lane);
+        }
+      }
+    }
+#pragma unroll
+    for (int ms = 0; ms < kMS; ++ms) {
+      const int m0 = (warp + ms * kWarps) * 16;
+      if (m0 < m_all) epilogue(m0, acc[ms]);
+    }
+  } else {
+    stage_input<T>(xs, xst, xsrc, aligned, m_all, cin, 0, cin, tid);
+    stage_weights<T>(ws, wexp, cin, cmid, c0, 0, kpad, tid);
+    __syncthreads();
+    const int kend = round_up(cin, kDepth<T>);
+    for (int m0 = warp * 16; m0 < m_all; m0 += kWarps * 16) {
+      float acc[4][4] = {};
+      warp_mma<T, 4>(acc, xs + min(m0 + g, m_all - 1) * xst,
+                     xs + min(m0 + g + 8, m_all - 1) * xst, cin, kend, ws, wst,
+                     lane);
+      epilogue(m0, acc);
     }
   }
   __syncthreads();
@@ -610,7 +686,7 @@ cudaError_t allow_pass1_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
   return err;
 }
 
-template <typename T, int K>
+template <typename T, int K, bool Sliced>
 int launch(const void* xv, void* outv, int n, int h, int w, int cin,
            int cmid, int cout, int cse, int k, int residual,
            const float* wexp, const float* bexp, const float* wdw,
@@ -622,14 +698,17 @@ int launch(const void* xv, void* outv, int n, int h, int w, int cin,
   const T* x = static_cast<const T*>(xv);
   T* out = static_cast<T*>(outv);
   const int n_tiles = (h + rows_per_tile - 1) / rows_per_tile;
-  const size_t smem1 =
-      sizeof(float) * (size_t)pass1_smem_floats<T>(rows_per_tile, w, cin, k);
+  const size_t smem1 = sizeof(float) * (size_t)pass1_smem_floats<T>(
+                                           rows_per_tile, w, cin, k, Sliced);
   if (smem1 > (size_t)kPass1SmemBudget) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_pass1_smem(expand_dw_kernel<T, K>, smem_set);
+  if (Sliced && (rows_per_tile + k - 1) * w > kSlicedPositions) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_pass1_smem(expand_dw_kernel<T, K, Sliced>, smem_set);
   if (err != cudaSuccess) return (int)err;
 
   dim3 grid1(n_tiles, (cmid + kTC - 1) / kTC, n);
-  expand_dw_kernel<T, K><<<grid1, kThreads, smem1, st>>>(
+  expand_dw_kernel<T, K, Sliced><<<grid1, kThreads, smem1, st>>>(
       x, h, w, cin, cmid, k, wexp, bexp, wdw, bdw, d, partial, rows_per_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -644,6 +723,20 @@ int launch(const void* xv, void* outv, int n, int h, int w, int cin,
   return (int)cudaGetLastError();
 }
 
+// The launcher of one activation type and staging: taps in registers for
+// EfficientNet's k 3 and 5; any other odd k reads them through L1 on the
+// whole tile, and has no sliced launcher (null).
+template <typename T, bool Sliced>
+auto launcher(int k) -> decltype(&launch<T, 3, Sliced>) {
+  if (k == 3) return &launch<T, 3, Sliced>;
+  if (k == 5) return &launch<T, 5, Sliced>;
+  if constexpr (Sliced) {
+    return nullptr;
+  } else {
+    return &launch<T, 0, Sliced>;
+  }
+}
+
 }  // namespace
 
 extern "C" int mct_fused_mbconv(
@@ -652,20 +745,17 @@ extern "C" int mct_fused_mbconv(
     const void* bexp, const void* wdw, const void* bdw, const void* wse1,
     const void* bse1, const void* wse2, const void* bse2, const void* wproj,
     const void* bproj, void* d, void* partial, void* e, int rows_per_tile,
-    void* stream) {
+    int sliced, void* stream) {
   if (n == 0) return 0;
   if (rows_per_tile < 1 || k < 1 || k % 2 == 0) {
     return (int)cudaErrorInvalidValue;
   }
   auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
-  // Taps in registers for EfficientNet's k 3 and 5; any other odd k reads
-  // them through L1.
-  auto run = act_bf16 ? (k == 3   ? &launch<__nv_bfloat16, 3>
-                         : k == 5 ? &launch<__nv_bfloat16, 5>
-                                  : &launch<__nv_bfloat16, 0>)
-                      : (k == 3   ? &launch<float, 3>
-                         : k == 5 ? &launch<float, 5>
-                                  : &launch<float, 0>);
+  auto run = act_bf16 ? (sliced ? launcher<__nv_bfloat16, true>(k)
+                                : launcher<__nv_bfloat16, false>(k))
+                      : (sliced ? launcher<float, true>(k)
+                                : launcher<float, false>(k));
+  if (run == nullptr) return (int)cudaErrorInvalidValue;
   return run(x, out, n, h, w, cin, cmid, cout, cse, k, residual, f(wexp),
              f(bexp), f(wdw), f(bdw), f(wse1), f(bse1), f(wse2), f(bse2),
              f(wproj), f(bproj), static_cast<float*>(d),
@@ -674,13 +764,13 @@ extern "C" int mct_fused_mbconv(
 }
 
 // Pass 1's dynamic shared memory in bytes for a tile of `rows` output rows,
-// and the budget it must fit; ops/fused_mbconv.py mirrors both to choose
-// the rows, and the card tests hold that copy against these.
-extern "C" int mct_fused_pass1_smem_bytes(int act_bf16, int rows, int w,
-                                          int cin, int k) {
+// whole or sliced, and the budget it must fit; ops/fused_mbconv.py mirrors
+// both to plan the tile, and the card tests hold that copy against these.
+extern "C" int mct_fused_pass1_smem_bytes(int act_bf16, int sliced, int rows,
+                                          int w, int cin, int k) {
   return (int)sizeof(float) *
-         (act_bf16 ? pass1_smem_floats<__nv_bfloat16>(rows, w, cin, k)
-                   : pass1_smem_floats<float>(rows, w, cin, k));
+         (act_bf16 ? pass1_smem_floats<__nv_bfloat16>(rows, w, cin, k, sliced)
+                   : pass1_smem_floats<float>(rows, w, cin, k, sliced));
 }
 
 extern "C" int mct_fused_pass1_smem_budget() { return kPass1SmemBudget; }

@@ -431,8 +431,8 @@ class FeatureBucketBuilder:
                 # process killed mid-run still leaves its count per written
                 # image.
                 logger.info("image %s written (%d points); kernel launches so"
-                            " far: crop %d, fused_mbconv %d", image_id, n_points,
-                            *launched)
+                            " far: crop %d, fused_mbconv %d (sliced %d)",
+                            image_id, n_points, *launched)
 
         done_queue: queue.Queue = queue.Queue(maxsize=2)
 
@@ -487,7 +487,8 @@ class FeatureBucketBuilder:
                         except Exception as exc:  # noqa: BLE001 - per-image isolation
                             record_failure(image_id, exc)
                             continue
-                        launched = (patch_crop.launches, fused_mbconv.launches)
+                        launched = (patch_crop.launches, fused_mbconv.launches,
+                                    fused_mbconv.sliced_launches)
                         # Blocks while the writer holds two images.
                         with profiling.span("bucket.handoff"):
                             done_queue.put((image_id, rowcols, readback, launched))

@@ -22,7 +22,10 @@ Port of ``mermaid_classifier_tpu/ops/fused_mbconv.py``:
 - ``fused_mbconv`` runs one stride-1 block: the kernel in
   ``csrc/fused_mbconv.cu`` for a CUDA tensor, the plain version
   ``fused_mbconv_reference`` for a CPU tensor. ``launches`` counts kernel
-  launch groups (one per call: expand+depthwise, SE, project). The kernel
+  launch groups (one per call: expand+depthwise, SE, project), and
+  ``sliced_launches`` those whose pass 1 streams Cin in slices
+  (``tile_plan``: the blocks whose whole-Cin tile overflows the
+  shared-memory budget, B4 and wider). The kernel
   is split at the squeeze-excite mean; its two 1x1 products run on the
   tensor cores (``mma.sync``: bf16 operands for bf16 activations, split
   TF32 for f32), so what bounds it is the depthwise taps on the CUDA cores,
@@ -57,12 +60,16 @@ from mermaid_classifier_tpu_torch.models.efficientnet import (
 from mermaid_classifier_tpu_torch.ops.depthwise import depthwise_conv
 
 launches = 0
+sliced_launches = 0
 
 # Shared memory one pass-1 block may take: two blocks fit one SM's 227 KB
 # (csrc/fused_mbconv.cu kPass1SmemBudget; the card tests hold this copy and
 # ``_pass1_smem_floats`` against the kernel's own).
 _PASS1_SMEM_BUDGET = 110 * 1024
 _KTC, _KZS, _KWARPS = 32, 33, 8  # csrc/fused_mbconv.cu kTC, kZs, kWarps
+# The sliced pass 1: input channels per slice and the staged positions a
+# tile may hold (csrc/fused_mbconv.cu kKC, kSlicedPositions).
+_KKC, _SLICED_POSITIONS = 32, 512
 
 
 # ---------------------------------------------------------------------------
@@ -313,27 +320,48 @@ def _a_stride(cin: int, bf16: bool) -> int:
     return _round_up(cin - 8, 16) + 8 if bf16 else _round_up(cin - 4, 8) + 4
 
 
-def _pass1_smem_floats(rows: int, w: int, cin: int, k: int,
-                       bf16: bool) -> int:
-    """csrc/fused_mbconv.cu pass1_smem_floats: staged input rows, expand
-    weights (K padded to 16, row stride b_stride), the padded expanded map
-    and the partial-sum reduction."""
+def _pass1_smem_floats(rows: int, w: int, cin: int, k: int, bf16: bool,
+                       sliced: bool = False) -> int:
+    """csrc/fused_mbconv.cu pass1_smem_floats: staged input rows (all Cin
+    channels, or a slice of ``_KKC``), expand weights (K padded to 16, row
+    stride b_stride), the padded expanded map and the partial-sum
+    reduction."""
     p = (k - 1) // 2
     zrows = rows + 2 * p
+    kin = _KKC if sliced else cin
     b_stride = _KTC + (4 if bf16 else 8)
-    return (zrows * w * _a_stride(cin, bf16) + _round_up(cin, 16) * b_stride
+    return (zrows * w * _a_stride(kin, bf16) + _round_up(kin, 16) * b_stride
             + zrows * (w + 2 * p) * _KZS + _KWARPS * _KTC)
 
 
-def rows_per_tile(meta: BlockMeta, dtype: torch.dtype) -> int:
-    """Output rows per pass-1 tile for activations of ``dtype``: the most
-    (up to 16) whose staged input, expanded map and weights fit the
-    shared-memory budget."""
+@dataclass(frozen=True)
+class TilePlan:
+    """Pass 1's tile: output rows per tile, and whether it streams Cin in
+    slices of ``_KKC`` channels."""
+
+    rows: int
+    sliced: bool = False
+
+
+def _tile_fits(rows: int, meta: BlockMeta, bf16: bool, sliced: bool) -> bool:
+    if sliced and (meta.kernel not in (3, 5)
+                   or (rows + meta.kernel - 1) * meta.w > _SLICED_POSITIONS):
+        return False
+    return 4 * _pass1_smem_floats(rows, meta.w, meta.in_channels, meta.kernel,
+                                  bf16, sliced) <= _PASS1_SMEM_BUDGET
+
+
+def tile_plan(meta: BlockMeta, dtype: torch.dtype) -> TilePlan:
+    """Pass 1's tile for activations of ``dtype``: the most output rows (up
+    to 16) whose staged input of all Cin channels, expanded map and weights
+    fit the shared-memory budget; where no row count fits, the most rows of
+    the sliced tile (Cin in slices, at most ``_SLICED_POSITIONS`` staged
+    positions; built for k 3 and 5 only)."""
     bf16 = dtype == torch.bfloat16
-    for rows in range(min(meta.h, 16), 0, -1):
-        if 4 * _pass1_smem_floats(rows, meta.w, meta.in_channels,
-                                  meta.kernel, bf16) <= _PASS1_SMEM_BUDGET:
-            return rows
+    for sliced in (False, True):
+        for rows in range(min(meta.h, 16), 0, -1):
+            if _tile_fits(rows, meta, bf16, sliced):
+                return TilePlan(rows, sliced)
     raise ValueError(f"block {meta} does not fit the fused kernel's tiles")
 
 
@@ -342,8 +370,8 @@ def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
     device; int8 triples are dequantized to contiguous f32 before the
     launch). x: (P, H, W, Cin) float32 or bfloat16; returns (P, H, W, Cout)
     in x.dtype. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
-    global launches
+    launches the kernel on ``tile_plan``'s tile or raises."""
+    global launches, sliced_launches
     meta: BlockMeta = blk["meta"]
     if meta.stride != 1:
         raise ValueError("fused_mbconv handles stride-1 blocks only")
@@ -372,8 +400,8 @@ def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
                 " activations' device (ops.fused_mbconv.to_device)"
             )
     cse = blk["se_reduce"][0].shape[1]
-    rows = rows_per_tile(meta, x.dtype)
-    n_tiles = -(-h // rows)
+    plan = tile_plan(meta, x.dtype)
+    n_tiles = -(-h // plan.rows)
     x = x.contiguous()
     out = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     if n == 0:
@@ -387,11 +415,12 @@ def fused_mbconv(x: torch.Tensor, blk: dict) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
         n, h, w, cin, cmid, cout, cse, k, int(meta.residual),
         *(t.data_ptr() for t in tensors),
-        d.data_ptr(), partial.data_ptr(), e.data_ptr(), rows,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        d.data_ptr(), partial.data_ptr(), e.data_ptr(), plan.rows,
+        int(plan.sliced), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "fused_mbconv")
     launches += 1
+    sliced_launches += plan.sliced
     return out
 
 

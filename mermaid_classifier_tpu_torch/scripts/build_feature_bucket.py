@@ -281,8 +281,9 @@ def _run(args, source_ids, weights, config, mesh) -> int:
 
     # What this process launched on the card (0 on the CPU, where the
     # wrappers run their plain versions): a launcher reads it per worker.
-    logger.info("kernel launches in this process: crop %d, fused_mbconv %d",
-                patch_crop.launches, fused_mbconv.launches)
+    logger.info("kernel launches in this process: crop %d, fused_mbconv %d"
+                " (sliced %d)", patch_crop.launches, fused_mbconv.launches,
+                fused_mbconv.sliced_launches)
     # Where the host's time went, by the program's spans (bucket.*,
     # extract.*): one line per span name.
     for name, spent in profiling.summary().items():

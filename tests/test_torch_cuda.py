@@ -14,6 +14,7 @@ import torch
 from mermaid_classifier_tpu_torch.models.efficientnet import (
     EfficientNetConfig,
     init_backbone_params,
+    variant_config,
 )
 from mermaid_classifier_tpu_torch.models.extractor import build_extractor
 from mermaid_classifier_tpu_torch.ops import fused_mbconv as fm
@@ -275,10 +276,165 @@ def test_pass1_smem_formula_matches_kernel(cuda, dtype):
              if fm.fusable(m)}
     geoms |= {(w, cin, k) for w in (7, 15, 56) for cin in range(1, 200)
               for k in (1, 3, 5, 7)}
+    geoms |= {(m.w, m.in_channels, m.kernel)
+              for v in VARIANTS for m in fm.block_metas(variant_config(v))
+              if fm.fusable(m)}
     for w, cin, k in sorted(geoms):
         for rows in (1, 5, 16):
-            assert lib.mct_fused_pass1_smem_bytes(int(bf16), rows, w, cin, k) \
-                == 4 * fm._pass1_smem_floats(rows, w, cin, k, bf16), (w, cin, k)
+            for sliced in (False, True):
+                assert lib.mct_fused_pass1_smem_bytes(
+                    int(bf16), int(sliced), rows, w, cin, k) \
+                    == 4 * fm._pass1_smem_floats(rows, w, cin, k, bf16, sliced), \
+                    (w, cin, k, sliced)
+
+
+VARIANTS = ("b0", "b1", "b2", "b3", "b4", "b5", "b6", "b7")
+# B4's fusable blocks whose whole-Cin tile overflows at one row, as
+# (Cin, Cmid, Cout, k, map): the sliced pass 1 takes them.
+B4_SLICED = ((160, 960, 160, 5, 24), (272, 1632, 272, 5, 12),
+             (448, 2688, 448, 3, 12))
+
+
+def _variant_blocks(cuda, variant, seed=1):
+    """The folded blocks (on the card) of a variant at its published size."""
+    config = variant_config(variant)
+    folded = fm.to_device(fm.fold_backbone(
+        _perturbed_variables(config, np.random.default_rng(seed)), config), cuda)
+    return config, folded["blocks"]
+
+
+def _sliced_plan(meta, dtype):
+    """The sliced tile of the most rows that fits the block."""
+    bf16 = dtype == torch.bfloat16
+    return fm.TilePlan(max(r for r in range(1, min(meta.h, 16) + 1)
+                           if fm._tile_fits(r, meta, bf16, True)), True)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 1e-2)])
+def test_sliced_kernel_matches_plain_at_b4_blocks(cuda, dtype, bound):
+    """The sliced pass 1 on B4's three overflowing block shapes at 380 px
+    (5 patches), against the plain version at the whole kernel's bounds;
+    each block's plan is the sliced tile, and counts one sliced launch."""
+    _, blocks = _variant_blocks(cuda, "b4")
+    rng = np.random.default_rng(2)
+    seen = set()
+    for blk in blocks:
+        meta = blk["meta"]
+        shape = (meta.in_channels, meta.mid_channels, meta.out_channels,
+                 meta.kernel, meta.h)
+        if not fm.fusable(meta) or shape not in B4_SLICED or shape in seen:
+            continue
+        seen.add(shape)
+        assert fm.tile_plan(meta, dtype).sliced
+        x = torch.from_numpy(rng.standard_normal(
+            (5, meta.h, meta.w, meta.in_channels)).astype(np.float32)).to(cuda, dtype)
+        before = (fm.launches, fm.sliced_launches)
+        got = fm.fused_mbconv(x, blk)
+        assert (fm.launches, fm.sliced_launches) == (before[0] + 1, before[1] + 1)
+        with fm.full_f32():
+            want = fm.fused_mbconv_reference(x, blk)
+        assert torch.isfinite(got.float()).all()
+        rel = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        print(f"sliced {shape} {dtype}: max rel {rel:.3e}")
+        assert rel <= bound, (shape, rel)
+    assert seen == set(B4_SLICED)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["b0", "b2"])
+def test_sliced_kernel_equals_whole_bitwise(cuda, variant, dtype, monkeypatch):
+    """Where both tiles fit, the sliced pass 1 at the same rows gives the
+    whole tile's bits: its slices take the same k steps in the same order
+    (every fusable block of B0 and B2, 3 patches; Cin 16 to 352 covers one
+    slice, a partial slice and many). The wrapper's planner is replaced by
+    each tile in turn."""
+    tile_plan = fm.tile_plan
+    _, blocks = _variant_blocks(cuda, variant)
+    rng = np.random.default_rng(4)
+    checked = 0
+    for blk in blocks:
+        meta = blk["meta"]
+        if not fm.fusable(meta):
+            continue
+        rows = min(tile_plan(meta, dtype).rows, _sliced_plan(meta, dtype).rows)
+        x = torch.from_numpy(rng.standard_normal(
+            (3, meta.h, meta.w, meta.in_channels)).astype(np.float32)).to(cuda, dtype)
+        outs = []
+        for plan in (fm.TilePlan(rows, False), fm.TilePlan(rows, True)):
+            monkeypatch.setattr(fm, "tile_plan", lambda *_, plan=plan: plan)
+            outs.append(fm.fused_mbconv(x, blk))
+        whole, sliced = outs
+        assert torch.equal(whole, sliced), (meta, rows)
+        checked += 1
+    assert checked == {"b0": 11, "b2": 15}[variant]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_every_fusable_block_launches(cuda, variant):
+    """Every fusable block of B0 to B7 at its published size launches on
+    its planned tile, in f32 and bf16, with a finite output; the sliced
+    tile takes the blocks that no whole tile fits (13 of B4's 23)."""
+    config, blocks = _variant_blocks(cuda, variant)
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = (fm.launches, fm.sliced_launches)
+        fused = sliced = 0
+        for blk in blocks:
+            meta = blk["meta"]
+            if not fm.fusable(meta):
+                continue
+            x = torch.from_numpy(rng.standard_normal(
+                (2, meta.h, meta.w, meta.in_channels)).astype(np.float32)).to(cuda, dtype)
+            out = fm.fused_mbconv(x, blk)
+            assert out.shape == (2, meta.h, meta.w, meta.out_channels)
+            assert torch.isfinite(out.float()).all(), (meta, dtype)
+            fused += 1
+            sliced += fm.tile_plan(meta, dtype).sliced
+        torch.cuda.synchronize()
+        assert (fm.launches, fm.sliced_launches) == (before[0] + fused,
+                                                     before[1] + sliced)
+        if variant == "b4":
+            assert (fused, sliced) == (23, 13)
+
+
+def _bench_extractor(cuda, config_name, seed=7):
+    """The benchmark's configuration and seeded, calibrated weights, as the
+    bulk cell builds its extractor."""
+    import json
+    from pathlib import Path
+
+    from benchmark import weights
+
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "benchmark"
+                      / "configs" / f"{config_name}.json").read_text())
+    bb = cfg["backbone"]
+    variables = weights.backbone_variables(bb, cfg["init"], seed, cuda)
+    config = EfficientNetConfig.from_dict(bb)
+    return config, build_extractor(variables, config, device=cuda,
+                                   **cfg["extractor"])
+
+
+@pytest.mark.parametrize("name,sliced_per_chunk", [
+    ("effnet_b4_380", 13), ("effnet_b2_260", 0), ("effnet_b0_224", 0)])
+def test_bulk_extractor_gate_and_sliced_launches(cuda, name, sliced_per_chunk):
+    """The bulk cell's bf16 fused extractor passes the builder's 0.999
+    cosine gate against the f32 CPU forward, and launches the sliced pass 1
+    13 times per trunk chunk on B4, never on B2 or B0."""
+    config, ex = _bench_extractor(cuda, name)
+    assert ex.verify_device_numerics(min_cosine=0.999) >= 0.999
+    rng = np.random.default_rng(6)
+    image = rng.integers(0, 256, size=(700, 900, 3), dtype=np.uint8)
+    pts = np.stack([rng.integers(0, 700, 200), rng.integers(0, 900, 200)], 1)
+    per_chunk = sum(map(fm.fusable, fm.block_metas(config)))
+    before = (fm.launches, fm.sliced_launches)
+    feats = ex.extract_features(image, pts)
+    assert feats.shape == (200, 4096) and np.isfinite(feats).all()
+    launched = fm.launches - before[0]
+    chunks = launched // per_chunk
+    assert launched == per_chunk * chunks and chunks >= 2
+    assert fm.sliced_launches - before[1] == sliced_per_chunk * chunks
 
 
 @pytest.mark.parametrize("name", ["b0_60px", "narrow_36px", "odd_k_30px"])

@@ -169,14 +169,16 @@ class TestFusedBlock:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_rows_per_tile_fits_shared_memory_at_224(self, dtype):
-        """Every fusable B0 block at 224 px gets a tile of >= 5 rows inside
-        the pass-1 shared-memory budget (the kernel's own formula, with the
-        activation type's padded row strides)."""
+        """Every fusable B0 block at 224 px gets a whole-Cin tile of >= 5
+        rows inside the pass-1 shared-memory budget (the kernel's own
+        formula, with the activation type's padded row strides)."""
         bf16 = dtype == torch.bfloat16
         checked = 0
         for meta in tfm.block_metas(port_config(EfficientNetConfig())):
             if tfm.fusable(meta):
-                rows = tfm.rows_per_tile(meta, dtype)
+                plan = tfm.tile_plan(meta, dtype)
+                rows = plan.rows
+                assert not plan.sliced
                 assert 5 <= rows <= meta.h
                 smem = 4 * tfm._pass1_smem_floats(rows, meta.w, meta.in_channels,
                                                   meta.kernel, bf16)
