@@ -36,14 +36,17 @@
 //      (P, tiles, Cmid) buffer (no atomics).
 //      Where a tile's rows of all Cin channels overflow the budget even at
 //      one row (EfficientNet-B4 and wider: Cin 160 to 448 at 12^2 to 24^2),
-//      the Sliced instance streams Cin in slices of kKC channels: each slice
-//      stages its input rows and expand-weight rows in the same buffers,
-//      the expand accumulates across the slices in the mma registers (up to
-//      kMS 16-position steps per warp, so a tile stages at most
-//      kSlicedPositions positions), and bias + SiLU + the rounding run once
-//      after the last slice. The slices take the whole tile's k steps in
-//      the same order, so both instances give the same bits. The Sliced
-//      instance is built for EfficientNet's k 3 and 5 only.
+//      the Sliced instance streams Cin in slices of kKC channels through a
+//      ring of kStages shared-memory stages: 16-byte cp.async copies bring
+//      slice s+1's input rows (in the activation type, zero-filled past
+//      Cin) and expand-weight rows (f32) while the tensor cores expand
+//      slice s, one barrier per slice. The expand accumulates across the
+//      slices in the mma registers (up to kMS 16-position steps per warp,
+//      so a tile stages at most kSlicedPositions positions), and bias +
+//      SiLU + the rounding run once after the last slice. The slices take
+//      the whole tile's k steps in the same order, so both instances give
+//      the same bits. The Sliced instance is built for EfficientNet's k 3
+//      and 5 only, and takes Cin a multiple of the 16-byte vector.
 //   2. se_kernel, one block per patch: reduces the partial sums, divides by
 //      H*W, runs FC + SiLU and FC + sigmoid into e (P, Cmid).
 //   3. project_kernel, one block per (64 out channels, 64 positions, patch):
@@ -59,14 +62,15 @@
 // MXU computes it. f32 activations: m16n8k8 TF32 in split precision, each
 // operand a = hi + lo with hi = tf32(a), lo = tf32(a - hi), summing
 // lo*hi + hi*lo + hi*hi, which keeps f32 accuracy at three times the
-// tensor-core work. Fragments are read from the f32 shared-memory tiles and
-// converted as they are loaded; row strides are padded so that those reads
-// avoid bank conflicts.
+// tensor-core work. Fragments are read from the shared-memory tiles (f32,
+// or the sliced instance's bf16 input through ldmatrix) and converted as
+// they are loaded; row strides are padded so that those reads avoid bank
+// conflicts.
 //
 // Still open: the f32 round trip of d through device memory (0.72 GB
 // written and read back per 128-patch B0 chunk), the expand recomputed on
-// the 2p halo rows of every tile, wgmma/TMA/cp.async staging, and bf16
-// shared-memory tiles.
+// the 2p halo rows of every tile, wgmma/TMA staging, and, for the whole
+// tile, cp.async staging and bf16 shared-memory tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,11 +91,13 @@ constexpr int kLoads = 8;  // global loads in flight per thread when staging
 constexpr int kR = 4;      // adjacent depthwise outputs per lane
 // Pass-1 dynamic shared memory; ops/fused_mbconv.py:_PASS1_SMEM_BUDGET.
 constexpr int kPass1SmemBudget = 110 * 1024;
-// The sliced pass 1 (ops/fused_mbconv.py _KKC, _SLICED_POSITIONS): input
-// channels per slice, 16-position expand steps per warp, staged positions.
+// The sliced pass 1 (ops/fused_mbconv.py _KKC, _SLICED_POSITIONS,
+// _KSTAGES): input channels per slice, 16-position expand steps per warp,
+// staged positions, slices in the ring.
 constexpr int kKC = 32;
 constexpr int kMS = 4;
 constexpr int kSlicedPositions = kWarps * 16 * kMS;
+constexpr int kStages = 2;
 constexpr int kMaxDevices = 64;
 
 template <typename T>
@@ -128,7 +134,9 @@ __device__ __forceinline__ float silu_fast(float v) {
 // (positions x K) is read in pairs (bf16) or singly (TF32) by lanes
 // g = lane / 4 on rows and t = lane % 4 along K; a B tile (K x N, N
 // contiguous) is read by t on rows and g on columns. These strides put
-// every lane of a load on its own bank.
+// every lane of a load on its own bank. The sliced instance's bf16 tile
+// takes a_stride<bf16>(kKC) = 40 bf16 elements (80 bytes): the eight rows
+// of each ldmatrix phase fall on eight distinct 16-byte bank groups.
 template <typename T> __host__ __device__ constexpr int a_stride(int k) {
   // bf16: stride = 8 (mod 16); TF32: stride = 4 (mod 8).
   return is_bf16<T> ? ((k + 7) / 16) * 16 + 8 : ((k + 3) / 8) * 8 + 4;
@@ -143,21 +151,42 @@ __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// Shared-memory floats pass 1 needs for a tile of `rows` output rows, its
-// input staged whole (Cin channels) or in slices of kKC. The Python wrapper
-// (ops/fused_mbconv.py:_pass1_smem_floats) uses the same formula to plan
-// the tile; mct_fused_pass1_smem_bytes below lets the card tests hold the
-// two against each other.
+// One stage of the sliced ring for n_pos staged positions: kKC channels of
+// each position in the activation type (row stride a_stride<T>(kKC)
+// elements), then kKC expand-weight rows in f32. Both parts are whole
+// 16-byte vectors, so every stage and part starts 16-byte aligned.
+template <typename T>
+__host__ __device__ constexpr int sliced_x_floats(int n_pos) {
+  return n_pos * a_stride<T>(kKC) * (int)sizeof(T) / 4;
+}
+template <typename T>
+__host__ __device__ constexpr int sliced_stage_floats(int n_pos) {
+  return sliced_x_floats<T>(n_pos) + kKC * b_stride<T>(kTC);
+}
+
+// Shared-memory floats of pass 1's staged input and expand weights for
+// n_pos staged positions: all Cin channels in f32 (weights K padded to 16),
+// or the sliced ring.
+template <typename T>
+__host__ __device__ inline int staged_floats(int n_pos, int cin,
+                                             bool sliced) {
+  return sliced ? kStages * sliced_stage_floats<T>(n_pos)
+                : n_pos * a_stride<T>(cin) + round_up(cin, 16) * b_stride<T>(kTC);
+}
+
+// Shared-memory floats pass 1 needs for a tile of `rows` output rows: the
+// staged input and weights, the padded expanded map and the partial-sum
+// reduction. The Python wrapper (ops/fused_mbconv.py:_pass1_smem_floats)
+// uses the same formula to plan the tile; mct_fused_pass1_smem_bytes below
+// lets the card tests hold the two against each other.
 template <typename T>
 __host__ __device__ inline int pass1_smem_floats(int rows, int w, int cin,
                                                  int k, bool sliced) {
   const int p = (k - 1) / 2;
   const int zrows = rows + 2 * p;
-  const int kin = sliced ? kKC : cin;            // channels staged at once
-  return zrows * w * a_stride<T>(kin)            // staged input rows
-         + round_up(kin, 16) * b_stride<T>(kTC)  // expand weights, K padded
-         + zrows * (w + 2 * p) * kZs             // padded expanded map
-         + kWarps * kTC;                         // partial-sum reduction
+  return staged_floats<T>(zrows * w, cin, sliced)
+         + zrows * (w + 2 * p) * kZs  // padded expanded map
+         + kWarps * kTC;              // partial-sum reduction
 }
 
 // Store 16 bytes of activations as f32 at dst (16-byte aligned).
@@ -270,6 +299,69 @@ __device__ __forceinline__ void warp_mma(float (&c)[NT][4],
   }
 }
 
+// The sliced instance's A operand: rows m0 .. m0 + 15 of a bf16 tile (row
+// stride xst elements, rows past m_all read as row m_all - 1), columns
+// k0 .. k0 + 15, as the m16n8k16 A fragment. ldmatrix.x4 takes matrix i's
+// row addresses from lanes 8i .. 8i + 7: rows (lane & 15), column half
+// (lane >> 4).
+__device__ __forceinline__ void load_a_bf16(uint32_t (&a)[4],
+                                            const __nv_bfloat16* xs, int xst,
+                                            int m0, int m_all, int k0,
+                                            int lane) {
+  const int row = min(m0 + (lane & 15), m_all - 1);
+  const unsigned s = (unsigned)__cvta_generic_to_shared(
+      xs + row * xst + k0 + 8 * (lane >> 4));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  // src-size 0 writes 16 zero bytes and reads nothing.
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Issue (not wait for) the copies of slice [kc0, kc0 + kKC) into one ring
+// stage: the kKC channels of n_pos staged positions (rows of a contiguous
+// NHWC range from xsrc) into xs, row stride a_stride<T>(kKC), and expand-
+// weight rows kc0 .. kc0 + kKC of mid channels [c0, c0 + kTC) into ws (row
+// stride b_stride), zero-filled past Cin and Cmid. Cin is a multiple of
+// the 16-byte vector and Cmid of 4, x and wexp 16-byte aligned (the
+// launcher checks), so no vector straddles an edge.
+template <typename T>
+__device__ __forceinline__ void issue_slice(T* xs, float* ws, const T* xsrc,
+                                            int n_pos, int cin,
+                                            const float* wexp, int cmid,
+                                            int c0, int kc0, int tid) {
+  constexpr int kV = 16 / sizeof(T);  // channels per copy
+  constexpr int kNV = kKC / kV;       // copies per position
+  constexpr int xst = a_stride<T>(kKC);
+  for (int i = tid; i < n_pos * kNV; i += kThreads) {
+    const int pos = i / kNV, ch = i % kNV * kV;
+    const bool ok = kc0 + ch < cin;
+    cp_async16(xs + pos * xst + ch,
+               ok ? xsrc + (size_t)pos * cin + kc0 + ch : xsrc, ok);
+  }
+  constexpr int wst = b_stride<T>(kTC);
+  constexpr int kWV = kTC / 4;  // copies per weight row
+  for (int i = tid; i < kKC * kWV; i += kThreads) {
+    const int r = i / kWV, cc = i % kWV * 4;
+    const bool ok = kc0 + r < cin && c0 + cc < cmid;
+    cp_async16(ws + r * wst + cc,
+               ok ? wexp + (size_t)(kc0 + r) * cmid + c0 + cc : wexp, ok);
+  }
+}
+
 // Stage input channels [kc0, kc0 + kin) of n_pos staged positions (rows of
 // a contiguous NHWC range from xsrc) into xs, row stride xst, zero past Cin.
 // Each thread issues kLoads loads before it stores any, so that their
@@ -362,10 +454,49 @@ __device__ __forceinline__ void stage_weights(float* ws, const float* wexp,
   }
 }
 
+// The sliced instance's bf16 products of one slice: acc[ms] += A (the 16
+// positions of warp step ms, from the bf16 tile xs) * B (kend x kTC, f32
+// weights ws rounded to bf16). Each lane loads its B fragments once per
+// slice and reuses them over the kMS steps; every acc takes the k steps in
+// the whole tile's order.
+__device__ __forceinline__ void slice_mma_bf16(float (&acc)[kMS][4][4],
+                                               const __nv_bfloat16* xs,
+                                               const float* ws, int m_all,
+                                               int kend, int warp, int lane) {
+  constexpr int xst = a_stride<__nv_bfloat16>(kKC);
+  constexpr int wst = b_stride<__nv_bfloat16>(kTC);
+  constexpr int kSteps = kKC / 16;
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t b[kSteps][4][2];
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const float* bp = ws + (16 * ks + 2 * t) * wst + g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[ks][j][0] = pack_bf16(bp[8 * j], bp[8 * j + wst]);
+      b[ks][j][1] = pack_bf16(bp[8 * j + 8 * wst], bp[8 * j + 9 * wst]);
+    }
+  }
+#pragma unroll
+  for (int ms = 0; ms < kMS; ++ms) {
+    const int m0 = (warp + ms * kWarps) * 16;
+    if (m0 >= m_all) continue;  // warp-uniform
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      if (16 * ks >= kend) continue;
+      uint32_t a[4];
+      load_a_bf16(a, xs, xst, m0, m_all, 16 * ks, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[ms][j], a, b[ks][j][0], b[ks][j][1]);
+    }
+  }
+}
+
 // K: the depthwise kernel size, whose taps each lane holds in registers;
 // K = 0 takes the odd size k at run time and reads the taps through L1.
-// Sliced: stage Cin in slices of kKC channels (the tile stages at most
-// kSlicedPositions positions); else all Cin channels at once.
+// Sliced: stream Cin in slices of kKC channels through the cp.async ring
+// (the tile stages at most kSlicedPositions positions); else stage all Cin
+// channels at once.
 template <typename T, int K, bool Sliced>
 __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
     const T* __restrict__ x, int h, int w, int cin, int cmid, int k,
@@ -391,15 +522,17 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
   const int wz = w + 2 * p;
   const int in_lo = max(zr0, 0);
   const int in_hi = min(zr0 + zrows, h);
-  const int kin = Sliced ? kKC : cin;  // input channels staged at once
-  const int xst = a_stride<T>(kin);
-  const int kpad = round_up(kin, 16);
+  const int xst = a_stride<T>(cin);  // the whole tile's input row stride
+  const int kpad = round_up(cin, 16);
   constexpr int wst = b_stride<T>(kTC);
 
+  // The whole tile stages its input rows and weights in f32; the sliced
+  // tile holds its ring (staged_floats) in their place.
   const int max_zrows = rows_per_tile + 2 * p;
   float* xs = smem;                              // (in rows * w, xst)
   float* ws = xs + max_zrows * w * xst;          // (kpad, wst)
-  float* zs = ws + kpad * wst;                   // (zrows, wz, kZs)
+  float* zs = Sliced ? smem + staged_floats<T>(max_zrows * w, cin, true)
+                     : ws + kpad * wst;          // (zrows, wz, kZs)
   float* red = zs + max_zrows * wz * kZs;        // (kWarps, kTC)
 
   // Halo zeros: out-of-image rows, then the side columns of the others.
@@ -452,21 +585,49 @@ __global__ void __launch_bounds__(kThreads) expand_dw_kernel(
 
   // Expand on the tensor cores, 16 staged positions per warp step.
   if constexpr (Sliced) {
-    float acc[kMS][4][4] = {};
-    for (int kc0 = 0; kc0 < cin; kc0 += kKC) {
-      if (kc0 > 0) __syncthreads();  // the last slice's products are done
-      stage_input<T>(xs, xst, xsrc, aligned, m_all, cin, kc0, kKC, tid);
-      stage_weights<T>(ws, wexp, cin, cmid, c0, kc0, kpad, tid);
-      __syncthreads();
-      const int klim = min(cin - kc0, kKC);
-      const int kend = round_up(klim, kDepth<T>);
+    // The ring: slice s goes to stage s % kStages, its input rows first,
+    // its weights x_floats on. The first kStages - 1 slices are requested
+    // before the loop; then each slice's barrier releases the stage that
+    // the slice kStages - 1 ahead fills.
+    const int n_slices = (cin + kKC - 1) / kKC;
+    const int stage_floats = sliced_stage_floats<T>(max_zrows * w);
+    const int x_floats = sliced_x_floats<T>(max_zrows * w);
+    auto request_slice = [&](int s) {
+      float* stage = smem + s % kStages * stage_floats;
+      issue_slice<T>(reinterpret_cast<T*>(stage), stage + x_floats, xsrc,
+                     m_all, cin, wexp, cmid, c0, s * kKC, tid);
+    };
 #pragma unroll
-      for (int ms = 0; ms < kMS; ++ms) {
-        const int m0 = (warp + ms * kWarps) * 16;
-        if (m0 < m_all) {
-          warp_mma<T, 4>(acc[ms], xs + min(m0 + g, m_all - 1) * xst,
-                         xs + min(m0 + g + 8, m_all - 1) * xst, klim, kend,
-                         ws, wst, lane);
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n_slices) request_slice(s);
+      cp_async_commit();
+    }
+    float acc[kMS][4][4] = {};
+    for (int s = 0; s < n_slices; ++s) {
+      // This thread's copies of slice s have landed; past the barrier every
+      // thread's have, and slice s - 1's products are done, so its stage
+      // can take slice s + kStages - 1, whose copies fly under this slice's
+      // products.
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      if (s + kStages - 1 < n_slices) request_slice(s + kStages - 1);
+      cp_async_commit();
+      const float* stage = smem + s % kStages * stage_floats;
+      const int klim = min(cin - s * kKC, kKC);
+      const int kend = round_up(klim, kDepth<T>);
+      if constexpr (is_bf16<T>) {
+        slice_mma_bf16(acc, reinterpret_cast<const T*>(stage),
+                       stage + x_floats, m_all, kend, warp, lane);
+      } else {
+        constexpr int sxst = a_stride<T>(kKC);
+#pragma unroll
+        for (int ms = 0; ms < kMS; ++ms) {
+          const int m0 = (warp + ms * kWarps) * 16;
+          if (m0 < m_all) {
+            warp_mma<T, 4>(acc[ms], stage + min(m0 + g, m_all - 1) * sxst,
+                           stage + min(m0 + g + 8, m_all - 1) * sxst, klim,
+                           kend, stage + x_floats, wst, lane);
+          }
         }
       }
     }
@@ -701,7 +862,11 @@ int launch(const void* xv, void* outv, int n, int h, int w, int cin,
   const size_t smem1 = sizeof(float) * (size_t)pass1_smem_floats<T>(
                                            rows_per_tile, w, cin, k, Sliced);
   if (smem1 > (size_t)kPass1SmemBudget) return (int)cudaErrorInvalidValue;
-  if (Sliced && (rows_per_tile + k - 1) * w > kSlicedPositions) {
+  // The ring copies whole 16-byte vectors of x and of the expand weights.
+  if (Sliced && ((rows_per_tile + k - 1) * w > kSlicedPositions ||
+                 cin % (16 / sizeof(T)) != 0 || cmid % 4 != 0 ||
+                 reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+                 reinterpret_cast<uintptr_t>(wexp) % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = allow_pass1_smem(expand_dw_kernel<T, K, Sliced>, smem_set);

@@ -23,7 +23,8 @@ Port of ``mermaid_classifier_tpu/ops/fused_mbconv.py``:
   ``csrc/fused_mbconv.cu`` for a CUDA tensor, the plain version
   ``fused_mbconv_reference`` for a CPU tensor. ``launches`` counts kernel
   launch groups (one per call: expand+depthwise, SE, project), and
-  ``sliced_launches`` those whose pass 1 streams Cin in slices
+  ``sliced_launches`` those whose pass 1 streams Cin in slices through a
+  cp.async ring
   (``tile_plan``: the blocks whose whole-Cin tile overflows the
   shared-memory budget, B4 and wider). The kernel
   is split at the squeeze-excite mean; its two 1x1 products run on the
@@ -67,9 +68,10 @@ sliced_launches = 0
 # ``_pass1_smem_floats`` against the kernel's own).
 _PASS1_SMEM_BUDGET = 110 * 1024
 _KTC, _KZS, _KWARPS = 32, 33, 8  # csrc/fused_mbconv.cu kTC, kZs, kWarps
-# The sliced pass 1: input channels per slice and the staged positions a
-# tile may hold (csrc/fused_mbconv.cu kKC, kSlicedPositions).
-_KKC, _SLICED_POSITIONS = 32, 512
+# The sliced pass 1: input channels per slice, the staged positions a tile
+# may hold and the slices in its cp.async ring (csrc/fused_mbconv.cu kKC,
+# kSlicedPositions, kStages).
+_KKC, _SLICED_POSITIONS, _KSTAGES = 32, 512, 2
 
 
 # ---------------------------------------------------------------------------
@@ -322,16 +324,21 @@ def _a_stride(cin: int, bf16: bool) -> int:
 
 def _pass1_smem_floats(rows: int, w: int, cin: int, k: int, bf16: bool,
                        sliced: bool = False) -> int:
-    """csrc/fused_mbconv.cu pass1_smem_floats: staged input rows (all Cin
-    channels, or a slice of ``_KKC``), expand weights (K padded to 16, row
-    stride b_stride), the padded expanded map and the partial-sum
-    reduction."""
+    """csrc/fused_mbconv.cu pass1_smem_floats: the staged input and expand
+    weights (whole: all Cin channels in f32 and the weights' K padded to 16;
+    sliced: ``_KSTAGES`` ring stages, each a ``_KKC``-channel slice in the
+    activation type and its ``_KKC`` f32 weight rows; weight rows of stride
+    b_stride), the padded expanded map and the partial-sum reduction."""
     p = (k - 1) // 2
     zrows = rows + 2 * p
-    kin = _KKC if sliced else cin
     b_stride = _KTC + (4 if bf16 else 8)
-    return (zrows * w * _a_stride(kin, bf16) + _round_up(kin, 16) * b_stride
-            + zrows * (w + 2 * p) * _KZS + _KWARPS * _KTC)
+    if sliced:
+        item = 2 if bf16 else 4
+        staged = _KSTAGES * (zrows * w * _a_stride(_KKC, bf16) * item // 4
+                             + _KKC * b_stride)
+    else:
+        staged = zrows * w * _a_stride(cin, bf16) + _round_up(cin, 16) * b_stride
+    return staged + zrows * (w + 2 * p) * _KZS + _KWARPS * _KTC
 
 
 @dataclass(frozen=True)
@@ -344,7 +351,9 @@ class TilePlan:
 
 
 def _tile_fits(rows: int, meta: BlockMeta, bf16: bool, sliced: bool) -> bool:
+    # The sliced ring copies 16-byte vectors: 8 bf16 or 4 f32 channels.
     if sliced and (meta.kernel not in (3, 5)
+                   or meta.in_channels % (8 if bf16 else 4)
                    or (rows + meta.kernel - 1) * meta.w > _SLICED_POSITIONS):
         return False
     return 4 * _pass1_smem_floats(rows, meta.w, meta.in_channels, meta.kernel,
@@ -356,7 +365,8 @@ def tile_plan(meta: BlockMeta, dtype: torch.dtype) -> TilePlan:
     to 16) whose staged input of all Cin channels, expanded map and weights
     fit the shared-memory budget; where no row count fits, the most rows of
     the sliced tile (Cin in slices, at most ``_SLICED_POSITIONS`` staged
-    positions; built for k 3 and 5 only)."""
+    positions; built for k 3 and 5 and Cin a multiple of the 16-byte
+    vector only)."""
     bf16 = dtype == torch.bfloat16
     for sliced in (False, True):
         for rows in range(min(meta.h, 16), 0, -1):

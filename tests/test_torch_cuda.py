@@ -371,6 +371,49 @@ def test_sliced_kernel_equals_whole_bitwise(cuda, variant, dtype, monkeypatch):
     assert checked == {"b0": 11, "b2": 15}[variant]
 
 
+def _random_block(cuda, cin, k, h, rng):
+    """A folded-layout block (Cmid 6 Cin, Cout Cin, residual) with normal
+    weights at 1/sqrt(fan in), on the card."""
+    cmid, cse = 6 * cin, max(1, cin // 4)
+
+    def wb(*shape):
+        w = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        b = rng.standard_normal(shape[-1]) * 0.1
+        return tuple(torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (w, b))
+
+    return {"meta": fm.BlockMeta(cin, cmid, cin, k, 1, True, True, h, h),
+            "expand": wb(1, 1, cin, cmid), "depthwise": wb(k, k, cmid),
+            "se_reduce": wb(cmid, cse), "se_expand": wb(cse, cmid),
+            "project": wb(1, 1, cmid, cin)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("cin", [272, 40, 16])
+def test_sliced_ring_tails_equal_whole_bitwise(cuda, cin, k, dtype, monkeypatch):
+    """The sliced pass 1's ring at Cin that ends in a partial slice (272:
+    nine slices, the last of 16 channels; 40: two, the last of 8) and at a
+    single slice (16), zero-filled past Cin, gives the whole tile's bits at
+    the same rows (9^2 map, 3 patches, f32 and bf16)."""
+    rng = np.random.default_rng(cin + k)
+    blk = _random_block(cuda, cin, k, 9, rng)
+    meta = blk["meta"]
+    bf16 = dtype == torch.bfloat16
+    rows = min(max(r for r in range(1, 10) if fm._tile_fits(r, meta, bf16, s))
+               for s in (False, True))
+    x = torch.from_numpy(rng.standard_normal(
+        (3, 9, 9, cin)).astype(np.float32)).to(cuda, dtype)
+    outs = []
+    for plan in (fm.TilePlan(rows, False), fm.TilePlan(rows, True)):
+        monkeypatch.setattr(fm, "tile_plan", lambda *_, plan=plan: plan)
+        before = fm.sliced_launches
+        outs.append(fm.fused_mbconv(x, blk))
+        assert fm.sliced_launches == before + plan.sliced
+    whole, sliced = outs
+    assert torch.isfinite(whole.float()).all()
+    assert torch.equal(whole, sliced), (cin, k, dtype, rows)
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_every_fusable_block_launches(cuda, variant):
     """Every fusable block of B0 to B7 at its published size launches on

@@ -66,13 +66,15 @@ def test_every_fusable_block_gets_a_tile(variant, dtype):
 
 
 def test_sliced_layout_is_independent_of_cin():
-    """The sliced tile stages kKC input channels at a time, so its shared
-    memory is the same at any Cin, and below the whole tile's past kKC."""
-    for cin in (33, 160, 448, 640):
+    """The sliced tile's ring holds kStages slices of kKC input channels, so
+    its shared memory is the same at any Cin, and below the whole tile's
+    from Cin 72 on (two 32-channel slices and their weights)."""
+    for cin in (33, 72, 160, 448, 640):
         for bf16 in (False, True):
             sliced = fm._pass1_smem_floats(4, 24, cin, 5, bf16, True)
             assert sliced == fm._pass1_smem_floats(4, 24, fm._KKC, 5, bf16, True)
-            assert sliced < fm._pass1_smem_floats(4, 24, cin, 5, bf16)
+            if cin >= 72:
+                assert sliced < fm._pass1_smem_floats(4, 24, cin, 5, bf16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -87,6 +89,25 @@ def test_sliced_tile_takes_k3_and_k5_only(dtype):
                    for r in range(1, 13))
     with pytest.raises(ValueError, match="does not fit"):
         fm.tile_plan(k7, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_tile_takes_whole_16_byte_vectors_of_cin(dtype):
+    """The ring copies 16-byte vectors of the input (8 bf16 or 4 f32
+    channels): the sliced tile is offered only where Cin is a multiple of
+    the vector, and a block whose Cin is not, and that no whole tile fits,
+    gets no plan."""
+    bf16 = dtype == torch.bfloat16
+    vec = 8 if bf16 else 4
+    for cin in range(440, 457):
+        meta = fm.BlockMeta(cin, 6 * cin, 448, 3, 1, True, False, 12, 12)
+        fits = any(fm._tile_fits(r, meta, bf16, True) for r in range(1, 13))
+        assert fits == (cin % vec == 0), cin
+        if cin % vec:
+            with pytest.raises(ValueError, match="does not fit"):
+                fm.tile_plan(meta, dtype)
+        else:
+            assert fm.tile_plan(meta, dtype).sliced
 
 
 def test_cpu_tensors_count_no_sliced_launch():
